@@ -2,14 +2,15 @@
 
 The JAX package `niagara_tpu` is the reference; this package renders the
 same frames from the same cooked scene on an NVIDIA Hopper GPU.  It imports
-`torch` and never `jax` (or `ml_dtypes`): the only pieces of the JAX package
-it uses are the JAX-free host modules `niagara_tpu.config`,
-`niagara_tpu.utils.{math3d,pcg,png}` and `niagara_tpu.cooker.bindings`
-(the C++ cooker).  Everything else it needs from the host side has a
-JAX-free mirror here, held equal to its original by tests/test_torch_*.py.
+`torch`, numpy and the standard library, and nothing of `jax`, `ml_dtypes`
+or `niagara_tpu`: what it needs of the reference's JAX-free host modules it
+keeps as its own copy (`config.py`, `utils/`, the C++ cooker in
+`cooker/native/` with its ctypes binding), and every other host module has
+a mirror here, held equal to its original by tests/test_torch_*.py
+(tests/test_torch_imports.py enforces the import rule).
 
 Layout mirrors the JAX package so each counterpart is found by name:
-`scene.py`, `cooker.py`, `ops/`, `render/`; the three hand-written CUDA
-kernels (setup, tile raster, shade) live in `csrc/` and are built by
-`_build.py`.
+`scene.py`, `cooker/`, `ops/`, `render/`; the hand-written CUDA kernels
+(setup and tile raster, each with an alpha variant, and shade) live in
+`csrc/` and are built by `_build.py`.
 """

@@ -1,10 +1,10 @@
 """Build and bind the CUDA kernels in csrc/.
 
-All three kernels compile with one nvcc call into one shared library with
-a plain C interface (no PyTorch headers: seconds, not minutes), loaded
-with ctypes.  The library lands in build/ under a name carrying the hash
-of the sources and flags, so it is rebuilt exactly when one of them
-changes.  Pointers go in as `tensor.data_ptr()`, launches go on PyTorch's
+Each source compiles in its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface (no
+PyTorch headers: seconds, not minutes), loaded with ctypes.  The library
+lands in build/ under a name carrying the hash of the sources and flags,
+so it is rebuilt exactly when one of them changes.  Pointers go in as `tensor.data_ptr()`, launches go on PyTorch's
 current stream, and every C entry returns `cudaGetLastError()`.
 
 `LAUNCHES` counts the kernel launches of each wrapper: a wrapper adds one
@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -30,9 +31,11 @@ SOURCES = ("setup.cu", "raster.cu", "shade.cu")
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES = {"setup": 0, "raster": 0, "shade": 0}
+# one count per kernel variant: setup / setup_alpha and raster / raster_alpha
+# are the two static instances of setup.cu's scatter and raster.cu's kernel
+LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "shade": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
@@ -49,11 +52,13 @@ class SetupParams(ctypes.Structure):
 
 
 _SIGNATURES = {
-    # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices,
-    # params, capacity, block_counts, block_offsets, total, rec, aabb, flat, stream
-    "setup_launch": [P, P, P, P, P, P, P, I, P, P, P, SetupParams, I, P, P, P, P, P, P, P],
-    # tile_start, pair_tri, rec, frag_off, depth_in, vis_in, depth_out, vis_out, width, tiles_x, n_tiles, stream
-    "raster_launch": [P, P, P, I, P, P, P, P, I, I, I, P],
+    # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
+    # (null: no-alpha variant), params, capacity, block_counts, block_offsets, total,
+    # rec, aabb, flat, stream
+    "setup_launch": [P, P, P, P, P, P, P, I, P, P, P, P, SetupParams, I, P, P, P, P, P, P, P],
+    # tile_start, pair_tri, rec, frag_off, depth_in, vis_in, depth_out, vis_out, width, tiles_x,
+    # n_tiles, alpha_test, stream
+    "raster_launch": [P, P, P, I, P, P, P, P, I, I, I, I, P],
     # vis, n_px, width, rec0, off0, count0, rec1, off1, count1, attr, stream
     "shade_launch": [P, I, I, P, I, P, P, I, P, P, P],
 }
@@ -75,6 +80,28 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(path: str) -> None:
+    """nvcc every source in csrc/ at once, then link the objects to `path`."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, s + ".o"), os.path.join(CSRC_DIR, s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s in SOURCES
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        build_info["log"] = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_info['log']}")
+        out = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", out, *(os.path.join(tmp, s + ".o") for s in SOURCES)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(out, path)
+
+
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use from the sources in csrc/."""
     global _lib
@@ -83,15 +110,9 @@ def lib() -> ctypes.CDLL:
             path = os.path.join(BUILD_DIR, f"libniagara_kernels_{_digest()}.so")
             if not os.path.exists(path):
                 os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{path}.{os.getpid()}.tmp"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
                 t0 = time.perf_counter()
-                proc = subprocess.run(cmd, capture_output=True, text=True)
+                _compile(path)
                 build_info["seconds"] = time.perf_counter() - t0
-                build_info["log"] = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
-                os.replace(tmp, path)
             lib_ = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib_, name)

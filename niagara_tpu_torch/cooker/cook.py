@@ -1,10 +1,8 @@
-"""Scene cooking and synthetic draws, JAX-free.
+"""Scene cooking, JAX-free.
 
 * `assemble` / `cook_obj_meshes` mirror niagara_tpu/cooker/cook.py
-  (`_assemble` :29, `cook_obj_meshes` :138): OBJ -> C++ cooker
-  (`niagara_tpu.cooker.bindings`) -> one `Geometry`.
-* `synthesize_draws` mirrors niagara_tpu/cooker/synth.py:19 (the
-  reference's PCG32 draw scatter).
+  (`_assemble` :29, `cook_obj_meshes` :138): OBJ -> the port's C++ cooker
+  (`bindings`) -> one `Geometry`.
 * `procedural_obj` writes the port's stand-in mesh: a closed, non-convex,
   seeded noise-displaced thin torus with smooth normals (57,344
   triangles), so the port needs no external asset.
@@ -20,16 +18,12 @@ import os
 
 import numpy as np
 
-from niagara_tpu.config import MAX_LODS
-from niagara_tpu.cooker import bindings
-from niagara_tpu.utils import math3d
-from niagara_tpu.utils.pcg import PCG_DEFAULT_INC, pcg32_sequence, rand01_from_bits
+from ..config import MAX_LODS
+from ..scene import Geometry, Meshes, Meshlets
+from ..utils import math3d
+from . import bindings
 
-from .scene import Draws, Geometry, Meshes, Meshlets
-
-F = np.float32
-
-CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cache")
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cache")
 
 
 def assemble(meshes_cooked: list[dict]) -> Geometry:
@@ -134,55 +128,6 @@ def cook_obj_meshes(paths: list[str]) -> Geometry:
     return assemble(cooked)
 
 
-def synthesize_draws(mesh_count: int, draw_count: int = 1_000_000) -> Draws:
-    """The reference's random draw placement in a 300-unit cube, 9 PCG32
-    outputs per draw from state 0x42 (synth.py:19, bit-exact)."""
-    n = draw_count
-    bits = pcg32_sequence(9 * n, state=0x42, inc=int(PCG_DEFAULT_INC)).reshape(n, 9)
-    mesh_index = (bits[:, 0] % np.uint32(mesh_count)).astype(np.int32)
-    r01 = rand01_from_bits(bits[:, 1:])
-    sr = F(300.0)
-    position = (r01[:, 0:3].astype(F) * (sr * F(2))) - sr
-    scale = (r01[:, 3].astype(F) + F(1)) * F(2)
-    axis_raw = r01[:, 4:7].astype(F) * F(2) - F(1)
-    axis_len = np.sqrt(np.sum(axis_raw * axis_raw, axis=1, dtype=F)).astype(F)
-    axis = axis_raw / axis_len[:, None]
-    half = np.radians(r01[:, 7].astype(F) * F(90)).astype(F) * F(0.5)
-    orientation = np.concatenate(
-        [axis * np.sin(half, dtype=F)[:, None], np.cos(half, dtype=F)[:, None]], axis=1
-    ).astype(F)
-    return Draws(
-        position=position.astype(F),
-        scale=scale.astype(F),
-        orientation=orientation,
-        mesh_index=mesh_index,
-        meshlet_visibility_offset=np.zeros(n, dtype=np.uint32),
-        post_pass=np.zeros(n, dtype=np.int32),
-        material_index=np.zeros(n, dtype=np.int32),
-    )
-
-
-def small_scene_draws(mesh_count: int) -> Draws:
-    """The reference's PCG draws re-placed in view of the default camera
-    with seeded numpy (x in [-4,4], y in [-2,2], 3-20 units ahead, scale
-    0.6-2.4), the last three replaced by a large ring facing the camera 2.5
-    units ahead and two small draws hidden behind the right side of its
-    tube, so the late pass has draws to cull: the small scene the parity
-    tests and chip_smoke.py render at 256x128."""
-    n = 48
-    d = synthesize_draws(mesh_count, draw_count=n)
-    rng = np.random.default_rng(5)
-    d.position[:] = np.stack(
-        [rng.uniform(-4, 4, n), rng.uniform(-2, 2, n), -rng.uniform(3, 20, n)], axis=1
-    ).astype(F)
-    d.scale[:] = rng.uniform(0.6, 2.4, n).astype(F)
-    ring = 2.4 * (DIAMETER / 2) / (1 + TUBE_RADIUS * (1 + TUBE_BUMP))  # scaled ring radius
-    d.position[-3:] = np.array([[0, 0, -2.5], [ring * 6 / 2.5, 0, -6], [ring * 9 / 2.5, 0, -9]], F)
-    d.scale[-3:] = np.array([2.4, 0.15, 0.15], F)
-    d.orientation[-3:] = np.array([0, 0, 0, 1], F)  # ring in the xy plane
-    return d
-
-
 # the stand-in mesh: a thin torus whose tube radius carries seeded noise,
 # sized so the headline frame's steady-state load (emitted draws, live
 # triangles, tile pairs) sits near the reference's kitten scene
@@ -245,10 +190,3 @@ def cook_procedural(cache_dir: str = CACHE_DIR) -> Geometry:
     """The procedural mesh cooked through the C++ cooker, with its LOD chain."""
     return cook_obj_meshes([procedural_obj(cache_dir)])
 
-
-if __name__ == "__main__":
-    g = cook_procedural()
-    lods = int(g.meshes.lod_count[0])
-    print(f"vertices {g.vertex_count}  triangles(lod0) {int(g.meshes.lod_index_count[0, 0]) // 3}  "
-          f"meshlets {g.meshlets.count}  lods {lods}  "
-          f"meshlets/lod {g.meshes.lod_meshlet_count[0, :lods].tolist()}")

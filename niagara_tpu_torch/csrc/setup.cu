@@ -1,9 +1,14 @@
 // Triangle transform + setup + ordered compaction for Hopper.
 //
-// Replaces niagara_tpu/ops/setup_fused.py::_setup_kernel (no-alpha variant,
-// entered through setup_compact).  Plain torch twin: ops/setup.py::setup_plain,
-// which follows the same op order; with --fmad=false both round op by op, so
-// records agree bit for bit.
+// Replaces niagara_tpu/ops/setup_fused.py::_setup_kernel, entered through
+// setup_compact, in both static variants: no-alpha (_setup_kernel_noalpha)
+// and alpha (_setup_kernel_alpha), the template flag kAlpha of setup_scatter.
+// The alpha variant copies the triangle's opacity-mask row into record cols
+// 48-55 for clusters of post class > 0 and writes exact zeros for the rest
+// (a select: the mask table is read only for post clusters); the no-alpha
+// instance has no mask code at all.  Plain torch twin: ops/setup.py::
+// setup_plain, which follows the same op order; with --fmad=false both round
+// op by op, so records agree bit for bit.
 //
 // What bounds it here: per live triangle slot ~250 f32 ops and ~110 bytes of
 // corner reads (three [64,8] f32 vertex rows per cluster, shared by its 96
@@ -54,6 +59,7 @@ struct SetupIn {
   const int* tris;      // [M,96,3]
   const float* vdata;   // [M,64,8]
   const int* vertices;  // [M,64]
+  const float* alpha;   // [M,8,128] opacity-mask rows, channel-major (alpha variant only)
   SetupParams p;
 };
 
@@ -250,6 +256,7 @@ __global__ void setup_scan(const int* block_counts, int n_blocks, int* block_off
   if (tid == kScanThreads - 1) *total = sums[tid];
 }
 
+template <bool kAlpha>
 __global__ void setup_scatter(SetupIn in, const int* block_offsets, int capacity, float* rec_out,
                               int* aabb_out, int* flat_out) {
   __shared__ int warp_counts[kThreads / 32];
@@ -270,24 +277,33 @@ __global__ void setup_scatter(SetupIn in, const int* block_offsets, int capacity
   if (!valid || slot >= capacity) return;
   rec[13] = (float)slot;  // fragment ids = compacted index + pass offset
   float* dst = rec_out + (size_t)slot * kRec;
-  for (int i = 0; i < 47; ++i) dst[i] = rec[i];  // cols 47-55 stay zero
+  for (int i = 0; i < 47; ++i) dst[i] = rec[i];  // col 47 stays zero
+  if (kAlpha && in.post_pass[flat / kMaxTri] > 0) {  // cols 48-55: this triangle's mask row
+    const int k = flat / kMaxTri, t = flat - k * kMaxTri;
+    const float* mask = in.alpha + (size_t)in.mi[k] * 8 * 128 + t;
+    for (int i = 0; i < 8; ++i) dst[48 + i] = finite_or_zero(mask[i * 128]);
+  }  // else cols 48-55 stay zero
   for (int i = 0; i < 4; ++i) aabb_out[(size_t)i * capacity + slot] = box[i];
   flat_out[slot] = flat;
 }
 
 }  // namespace
 
+// alpha == nullptr launches the no-alpha variant, else the alpha variant.
 extern "C" int setup_launch(const long long* cluster_count, const int* mi, const int* tri_count,
                             const float* xform, const int* draw_id, const int* mat_index,
                             const int* post_pass, int K, const int* tris, const float* vdata,
-                            const int* vertices, SetupParams params, int capacity, int* block_counts,
-                            int* block_offsets, int* total, float* rec, int* aabb, int* flat,
-                            cudaStream_t stream) {
+                            const int* vertices, const float* alpha, SetupParams params, int capacity,
+                            int* block_counts, int* block_offsets, int* total, float* rec, int* aabb,
+                            int* flat, cudaStream_t stream) {
   SetupIn in{cluster_count, mi, tri_count, xform, draw_id, mat_index, post_pass, K, tris, vdata,
-             vertices, params};
+             vertices, alpha, params};
   int n_blocks = (K * kMaxTri + kThreads - 1) / kThreads;
   setup_count<<<n_blocks, kThreads, 0, stream>>>(in, block_counts);
   setup_scan<<<1, kScanThreads, 0, stream>>>(block_counts, n_blocks, block_offsets, total);
-  setup_scatter<<<n_blocks, kThreads, 0, stream>>>(in, block_offsets, capacity, rec, aabb, flat);
+  if (alpha != nullptr)
+    setup_scatter<true><<<n_blocks, kThreads, 0, stream>>>(in, block_offsets, capacity, rec, aabb, flat);
+  else
+    setup_scatter<false><<<n_blocks, kThreads, 0, stream>>>(in, block_offsets, capacity, rec, aabb, flat);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 """Two-pass draw and cluster culling (niagara_tpu/ops/cull.py, direct path).
 
-`draw_cull` is the per-draw frustum/occlusion cull + LOD pick (:80);
-`cluster_cull_direct` expands emitted draws straight to a flat cluster list
-and culls every cluster, with the two-pass visibility-bit protocol and the
-late pass's visibility-word write-back -- the single-class form of both
-`cluster_cull_direct` (:367) and `cluster_cull_direct_multi` (:397,
-`num_classes=1`).  Multi-class culling waits for the alpha class.
+`draw_cull` is the per-draw frustum/occlusion cull + LOD pick (:80), with
+the late pass's merged multi-class form (`num_classes`);
+`cluster_cull_direct_multi` (:397) expands emitted draws straight to a
+flat cluster list, culls every cluster with the two-pass visibility-bit
+protocol and the late pass's visibility-word write-back, and partitions
+the survivors into class groups; `cluster_cull_direct` (:367) is its
+single-class form.
 
 Visibility words are u32 values held in int64 (PyTorch's uint32 has few
 ops); compacted lists keep the reference's prefix order.
@@ -59,17 +60,24 @@ def _occluded(center, radius, params: CullParams, atlas, pyramid_shape):
     return valid & (depth_sphere <= depth)
 
 
-def draw_cull(scene, params: CullParams, draw_vis, atlas, *, late: bool, pyramid_shape):
-    """Per-draw cull + LOD select for the draws of class params.post_pass.
-    Returns (emit [D] bool, lod [D] int64, new draw visibility [D] bool).
-    With every draw in class 0 the late pass equals the reference's
-    `draw_cull(num_classes=1)`; merged multi-class culling waits for the
-    alpha class."""
+def draw_cull(scene, params: CullParams, draw_vis, atlas, *, late: bool, pyramid_shape,
+              num_classes: int | None = None):
+    """Per-draw cull + LOD select.  Returns (emit [D] bool, lod [D] int64,
+    new draw visibility [D] bool).  Without `num_classes` it culls the
+    draws of class params.post_pass; with it (late pass only) the draws of
+    every class < num_classes in one pass, each draw keeping its own
+    class's emission rule and visibility write-back (cull.py:105-138)."""
     row = scene.draw_mesh_row
     center, radius = transform_sphere_to_view(
         row[:, 0:3], row[:, 3], scene.draw_orientation, scene.draw_scale, scene.draw_position, params.view
     )
-    in_pass = scene.draw_post_pass == params.post_pass
+    if num_classes is None:
+        in_pass = scene.draw_post_pass == params.post_pass
+        pass_nonzero = params.post_pass != 0
+    else:
+        assert late, "merged multi-class culling is a late-pass protocol"
+        in_pass = scene.draw_post_pass < num_classes
+        pass_nonzero = scene.draw_post_pass != 0
 
     visible = cullmath.frustum_visible(center, radius, params.frustum, params.znear, params.zfar)
     visible = visible | (params.culling_enabled == 0)
@@ -79,7 +87,7 @@ def draw_cull(scene, params: CullParams, draw_vis, atlas, *, late: bool, pyramid
     new_vis = torch.where(in_pass, visible, draw_vis != 0)
 
     if late:
-        emit = visible & ((params.cluster_occlusion_enabled == 1) | (draw_vis == 0) | (params.post_pass != 0))
+        emit = visible & ((params.cluster_occlusion_enabled == 1) | (draw_vis == 0) | pass_nonzero)
     else:
         emit = visible & (draw_vis != 0)
 
@@ -99,13 +107,41 @@ def draw_cull(scene, params: CullParams, draw_vis, atlas, *, late: bool, pyramid
 def cluster_cull_direct(scene, params: CullParams, emit, lod_index, draw_vis, vis_words, atlas, *,
                         late: bool, pyramid_shape, draw_capacity: int, cluster_capacity: int,
                         candidate_capacity: int | None = None):
-    """Draws -> candidate clusters -> per-cluster cull -> ordered survivors.
+    """Single-class cluster_cull_direct_multi: the draws of one post class,
+    pre-filtered by draw_cull.
 
     Returns (cluster_draw [cap] int64, cluster_mi [cap] int64, count,
     new_vis_words, n_draws, draw_dropped, cluster_dropped, n_candidates);
     counts are 0-d int64 tensors."""
+    groups, *rest = cluster_cull_direct_multi(
+        scene, params, emit, lod_index, draw_vis, vis_words, atlas, late=late, pyramid_shape=pyramid_shape,
+        draw_capacity=draw_capacity, cluster_capacity=cluster_capacity, candidate_capacity=candidate_capacity)
+    return (*groups[0], *rest)
+
+
+def cluster_cull_direct_multi(scene, params: CullParams, emit, lod_index, draw_vis, vis_words, atlas, *,
+                              late: bool, pyramid_shape, draw_capacity: int, cluster_capacity,
+                              candidate_capacity: int | None = None, num_classes: int = 1,
+                              class_groups: tuple | None = None):
+    """Draws -> candidate clusters -> per-cluster cull -> ordered survivors
+    per class group (cull.py:397).
+
+    With num_classes > 1, draws of every class expand and cull together
+    (feed draw_cull(num_classes=...) emissions); the visibility skip and
+    the backface cone cull apply to class-0 clusters only, occlusion and
+    the write-back to all.  `class_groups` (default one group per class)
+    partitions the survivors, draw-major within each group;
+    `cluster_capacity` is an int or one capacity per group.
+
+    Returns (per_group, new_vis_words, n_draws, draw_dropped,
+    cluster_dropped, n_candidates), per_group a list of (cluster_draw [cap]
+    int64, cluster_mi [cap] int64, count); counts are 0-d int64 tensors."""
+    if class_groups is None:
+        class_groups = tuple((c,) for c in range(num_classes))
+    caps = (cluster_capacity,) * len(class_groups) if isinstance(cluster_capacity, int) else tuple(cluster_capacity)
+    assert len(caps) == len(class_groups)
     if candidate_capacity is None:
-        candidate_capacity = cluster_capacity
+        candidate_capacity = max(caps)
     dev = emit.device
 
     # 1) emitted draws, ascending id
@@ -137,6 +173,8 @@ def cluster_cull_direct(scene, params: CullParams, emit, lod_index, draw_vis, vi
     draw_id = e_draw[ci]
     mi = torch.clamp(meshlet_offset[ci] + ordv, 0, scene.meshlet_cull_row.shape[0] - 1)
     vis_slot = e_visoff[ci] + ordv
+    multi = num_classes > 1
+    cls = (scene.draw_post_pass[e_draw] * live_d)[ci] if multi else None
 
     # 3) per-cluster cull
     row = scene.meshlet_cull_row[mi]
@@ -152,18 +190,23 @@ def cluster_cull_direct(scene, params: CullParams, emit, lod_index, draw_vis, vi
     bit = torch.ones_like(vis_slot) << (vis_slot & 31)
     vis_bit = (words & bit) != 0
 
+    # the visibility skip and the backface cone cull gate on class 0 (post
+    # classes render double-sided): per cluster when merged, else per pass
     cluster_occ = params.cluster_occlusion_enabled == 1
-    occ_proto = cluster_occ and params.post_pass == 0
+    if multi:
+        cls0 = cls == 0
+    else:
+        cls0 = torch.ones_like(valid) if params.post_pass == 0 else torch.zeros_like(valid)
     visible = valid
     skip = torch.zeros_like(valid)
-    if not late:
-        if occ_proto:
-            visible = visible & vis_bit
-    elif occ_proto:
-        skip = e_vis[ci] & vis_bit & valid
+    if cluster_occ:
+        if not late:
+            visible = visible & (vis_bit | ~cls0)
+        else:
+            skip = cls0 & e_vis[ci] & vis_bit & valid
 
-    if params.cluster_backface_enabled == 1 and params.post_pass == 0:
-        visible = visible & ~cullmath.cone_cull(center, radius, cone_axis, row[:, 7])
+    if params.cluster_backface_enabled == 1:
+        visible = visible & ~(cls0 & cullmath.cone_cull(center, radius, cone_axis, row[:, 7]))
     visible = visible & cullmath.frustum_visible(center, radius, params.frustum, params.znear, params.zfar)
     if late and cluster_occ:
         visible = visible & ~_occluded(center, radius, params, atlas, pyramid_shape)
@@ -180,6 +223,17 @@ def cluster_cull_direct(scene, params: CullParams, emit, lod_index, draw_vis, vi
             cleared, torch.where(valid, vis_slot >> 5, W), torch.where(valid & visible, bit, 0), mode="add"
         )
 
-    # 4) survivors, draw-major
-    idx, k_count, over = compact.compact_mask_indices(visible & ~skip, cluster_capacity)
-    return (draw_id[idx], mi[idx], k_count, new_vis_words, n_draws, draw_dropped, over, mcount.sum())
+    # 4) survivors per group, draw-major
+    emit_mask = visible & ~skip
+    per_group, cluster_dropped = [], 0
+    for group, cap in zip(class_groups, caps):
+        mask = emit_mask
+        if multi:
+            in_group = cls == group[0]
+            for c in group[1:]:
+                in_group = in_group | (cls == c)
+            mask = mask & in_group
+        idx, k_count, over = compact.compact_mask_indices(mask, cap)
+        per_group.append((draw_id[idx], mi[idx], k_count))
+        cluster_dropped = cluster_dropped + over
+    return per_group, new_vis_words, n_draws, draw_dropped, cluster_dropped, mcount.sum()

@@ -16,7 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from niagara_tpu.utils.math3d import image_mip_levels, previous_pow2
+from ..utils.math3d import image_mip_levels, previous_pow2
 
 
 def pyramid_shape(width: int, height: int) -> tuple[int, int, int]:

@@ -49,9 +49,11 @@ def order_clusters_by_x(scene, params, cluster_draw, cluster_mi, cluster_count):
 
 def transform_meta_direct(scene, cluster_draw, cluster_mi, cluster_count):
     """Per-cluster setup inputs: meshlet index, triangle count, transform
-    row and ids (the reference's dict minus the TPU row-table handles)."""
+    row and ids (the reference's dict minus the TPU row-table handles),
+    plus the scene's opacity-mask table under "alpha" when it has masks
+    (raster.py:257-258), which selects the setup kernel's alpha variant."""
     mi = torch.clamp(cluster_mi, 0, scene.meshlet_tris.shape[0] - 1)
-    return dict(
+    out = dict(
         mi=mi,
         tri_count=scene.meshlet_triangle_count[mi],
         xform=scene.draw_xform_row[cluster_draw],
@@ -60,3 +62,6 @@ def transform_meta_direct(scene, cluster_draw, cluster_mi, cluster_count):
         post_pass=scene.draw_post_pass[cluster_draw],
         count=torch.reshape(cluster_count, (1,)),
     )
+    if scene.has_alpha_masks:
+        out["alpha"] = scene.meshlet_alpha
+    return out

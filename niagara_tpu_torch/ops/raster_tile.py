@@ -4,8 +4,8 @@
   reference's footprint classes, class capacities and drop/demand
   counters.  Plain torch, as the reference computes it outside Pallas.
 * `rasterize_tiles` (:519) -- pair emission + the tile raster kernel
-  (csrc/raster.cu, replacing the Pallas `_raster_kernel`, opaque variant);
-  `raster_plain` is its plain torch version.
+  (csrc/raster.cu, replacing the Pallas `_raster_kernel` in its opaque and
+  `alpha_test` variants); `raster_plain` is its plain torch version.
 * `shade_tiles` (:918) -- per-pixel attribute interpolation over the
   visibility buffer (csrc/shade.cu, replacing the Pallas `_shade_kernel`);
   `shade_plain` is its plain torch version.
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from niagara_tpu.config import TILE_H, TILE_W
+from ..config import TILE_H, TILE_W
 
 from .. import _build
 from . import compact, cullmath
@@ -126,23 +126,27 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
 
 
 def rasterize_tiles(setup: dict, depth, vis, *, tiles_x: int, tiles_y: int, pair_capacity: int,
-                    frag_offset: int = 0, class_caps: tuple | None = None):
+                    frag_offset: int = 0, class_caps: tuple | None = None, alpha_test: bool = False):
     """Rasterize set-up triangles onto depth/vis [H, W].  `class_caps` =
     (tiny2, small, midA, midB) pair-class budgets or None for emit_pairs'
-    defaults.  Returns (depth, vis, stats) with stats = emit_pairs'
-    counters + `stream`, the record stream `shade_tiles` resolves
-    attributes from."""
+    defaults; `alpha_test` runs the kernel's alpha variant (records with an
+    opacity mask, cols 48-55, discard the pixels of clear mask cells).
+    Returns (depth, vis, stats) with stats = emit_pairs' counters +
+    `stream`, the record stream `shade_tiles` resolves attributes from."""
     cc = dict(zip(("tiny2_capacity", "small_capacity", "mid_capacity", "midb_capacity"), class_caps or ()))
     pairs = emit_pairs(setup, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=pair_capacity, **cc)
     args = (pairs["tile_start"], pairs["pair_tri"], setup["rec"], frag_offset, depth, vis, tiles_x)
-    depth, vis = raster_plain(*args) if depth.device.type == "cpu" else raster_cuda(*args)
+    raster = raster_plain if depth.device.type == "cpu" else raster_cuda
+    depth, vis = raster(*args, alpha_test=alpha_test)
     stream = dict(rec=setup["rec"], frag_off=frag_offset, count=setup["count"])
     return depth, vis, dict(pairs, stream=stream)
 
 
-def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x):
-    """The tile raster kernel (csrc/raster.cu): raster_plain's contract."""
-    _build.require_cuda(depth, "raster")
+def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False):
+    """The tile raster kernel (csrc/raster.cu), its alpha_test variant on
+    request: raster_plain's contract."""
+    name = "raster_alpha" if alpha_test else "raster"
+    _build.require_cuda(depth, name)
     H, W = depth.shape
     _build.expect(depth, torch.float32, (H, W), "raster depth")
     _build.expect(vis, torch.int32, (H, W), "raster vis")
@@ -158,9 +162,9 @@ def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x):
     n_tiles = ts.shape[0] - 1
     rc = lib.raster_launch(ts.data_ptr(), pt.data_ptr(), rec.data_ptr(), int(frag_offset),
                            depth_in.data_ptr(), vis_in.data_ptr(), depth_out.data_ptr(), vis_out.data_ptr(),
-                           W, tiles_x, n_tiles, _build.stream_ptr(depth))
-    _build.LAUNCHES["raster"] += 1
-    _build.check(rc, "raster")
+                           W, tiles_x, n_tiles, int(alpha_test), _build.stream_ptr(depth))
+    _build.LAUNCHES[name] += 1
+    _build.check(rc, name)
     return depth_out, vis_out
 
 
@@ -168,11 +172,37 @@ def _edge(r, k, fx, fy):
     return r[:, k : k + 1] * fx + r[:, k + 1 : k + 2] * fy + r[:, k + 2 : k + 3]
 
 
-def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x):
+def mask_bit_float(half, bb):
+    """The reference's f32 mask-bit extract (raster_tile.py:466-467):
+    floor(half * 2^-(bb mod 16)) mod 2, as 0.0 / 1.0 (NaN for a NaN cell)."""
+    t = torch.floor(half * torch.exp2(-torch.remainder(bb, 16.0)))
+    return t - 2.0 * torch.floor(t * 0.5)
+
+
+def _alpha_pass(r, e0, e1, e2):
+    """Per (record, pixel): False where the record's opacity mask (cols
+    48-55, idu = col 54 > 0) has the pixel's uv cell clear
+    (raster_tile.py:450-468, the same ops in the same order)."""
+    def c(k):
+        return r[:, k : k + 1]
+
+    wsum = e0 + e1 + e2
+    inv = torch.where(torch.abs(wsum) < 1e-20, 0.0, cullmath.rdiv(1.0, wsum))
+    u = (e1 * c(22) + e2 * c(30) + e0 * c(38)) * inv
+    v = (e1 * c(23) + e2 * c(31) + e0 * c(39)) * inv
+    gx = torch.clamp(torch.floor((u - c(52)) * c(54)), 0.0, 7.0)
+    gy = torch.clamp(torch.floor((v - c(53)) * c(55)), 0.0, 7.0)
+    bb = gy * 8.0 + gx
+    half = torch.where(bb < 16.0, c(48), torch.where(bb < 32.0, c(49), torch.where(bb < 48.0, c(50), c(51))))
+    return (c(54) <= 0.0) | (mask_bit_float(half, bb) > 0.5)
+
+
+def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False):
     """Plain torch tile raster: every pair's record evaluated over its
     tile's 1024 pixel centers; per pixel the max reverse-Z covered depth
     wins, ties to the smallest fragment id, merged with the carried
-    depth/vis under the same rule (raster_tile.py:416-492)."""
+    depth/vis under the same rule (raster_tile.py:416-492); `alpha_test`
+    adds the opacity-mask test of masked records."""
     H, W = depth.shape
     dev = depth.device
     n_tiles = tile_start.shape[0] - 1
@@ -187,18 +217,22 @@ def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x):
         p = torch.arange(c0, min(c0 + chunk, pair_tri.shape[0]), device=dev)
         live = p < n_live
         t = torch.clamp_max(torch.searchsorted(tile_start[1:], p, right=True), n_tiles - 1)
-        r = rec[pair_tri[p]][:, :16]
+        r = rec[pair_tri[p]] if alpha_test else rec[pair_tri[p]][:, :16]
         px = (t % tiles_x)[:, None] * TILE_W + lx
         py = (t // tiles_x)[:, None] * TILE_H + ly
         fx, fy = px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5
         cover = live[:, None]
+        edges = []
         for k in (0, 3, 6):
             e = _edge(r, k, fx, fy)
             a, b = r[:, k : k + 1], r[:, k + 1 : k + 2]
             top_left = (a > 0.0) | ((a == 0.0) & (b > 0.0))
             cover = cover & ((e > 0.0) | (top_left & (e == 0.0)))
+            edges.append(e)
         z = _edge(r, 9, fx, fy)
         cover = cover & (z > 0.0) & (z <= 1.0)
+        if alpha_test:
+            cover = cover & _alpha_pass(r, *edges)
         frag = r[:, 13].to(torch.int64) + frag_offset
         key = (z.view(torch.int32).to(torch.int64) << 32) | (0xFFFFFFFF - frag)[:, None]
         best.scatter_reduce_(0, (py * W + px).reshape(-1), torch.where(cover, key, 0).reshape(-1), "amax")

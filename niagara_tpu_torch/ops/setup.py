@@ -1,7 +1,10 @@
 """Triangle transform + setup + ordered compaction.
 
 Port of niagara_tpu/ops/setup_fused.py::setup_compact (:676), whose Pallas
-kernel `_setup_kernel` (:190, no-alpha variant) becomes csrc/setup.cu.
+kernel `_setup_kernel` (:190) becomes csrc/setup.cu, in both its variants:
+no-alpha, and alpha (`_setup_kernel_alpha` :166), chosen statically when
+`tc` carries the scene's opacity-mask table (`tc["alpha"]`, a scene with
+masks; setup_fused.py:714).
 `setup_plain` is the same function in plain torch: the corner transform of
 setup_fused.py:297-356 followed by the setup and compaction math of
 raster.compact_setup (raster.py:331-504), op for op in the kernel's order.
@@ -11,7 +14,9 @@ Record layout (REC = 56 f32 per triangle, as the reference):
   (col 13 overwritten with the record's compacted index), 16-39 per corner
   A/B/C: screen x, y, viewz, world normal xyz, u, v; 40-42 vertex ids;
   43 draw, 44 material, 45 post class; 46 flat cluster*96+tri index;
-  47-55 zero (48-55 hold the opacity mask in the alpha variant).
+  47 zero; 48-55 zero, or in the alpha variant the triangle's opacity-mask
+  row (4 mask halves, u0, v0, 8/du, 8/dv) for clusters of post class > 0
+  and exactly 0 for the rest (select, not multiply: setup_fused.py:455-463).
 
 Corners are read from f32 `meshlet_vdata`.  The TPU kernel reads them
 through a 2-way bf16 split (scene.py:438-448), exact for the fp16
@@ -25,7 +30,7 @@ import ctypes
 
 import torch
 
-from niagara_tpu.config import MESH_MAXTRI, MESH_MAXVTX
+from ..config import MESH_MAXTRI, MESH_MAXVTX
 
 from .. import _build
 from . import compact, cullmath
@@ -36,7 +41,8 @@ SETUP_THREADS = 256  # triangle slots per block in csrc/setup.cu
 
 def setup_compact(tc: dict, scene, params, width: int, height: int, capacity: int) -> dict:
     """Setup + compaction of the [K, 96] triangle slots of `tc`
-    (raster.transform_meta_direct).  Returns rec [capacity, REC] f32,
+    (raster.transform_meta_direct; the alpha variant when it holds
+    "alpha").  Returns rec [capacity, REC] f32,
     x0/y0/x1/y1 [capacity] i32, tri_k/tri_t [capacity] int64, valid,
     count and dropped (0-d int64).  Rows past `count` are zero."""
     if tc["mi"].device.type == "cpu":
@@ -51,13 +57,19 @@ def _view_consts(params, width, height):
 
 
 def setup_cuda(tc, scene, params, width, height, capacity):
-    """The setup kernel (csrc/setup.cu): setup_plain's contract."""
+    """The setup kernel (csrc/setup.cu), its alpha variant when `tc` holds
+    "alpha": setup_plain's contract."""
     mi = tc["mi"]
-    _build.require_cuda(mi, "setup")
+    alpha = tc.get("alpha")
+    name = "setup" if alpha is None else "setup_alpha"
+    _build.require_cuda(mi, name)
     _build.expect(tc["xform"], torch.float32, (mi.shape[0], 8), "setup xform")
     _build.expect(scene.meshlet_tris, torch.int32, (MESH_MAXTRI, 3), "meshlet_tris")
     _build.expect(scene.meshlet_vdata, torch.float32, (MESH_MAXVTX, 8), "meshlet_vdata")
     _build.expect(scene.meshlet_vertices, torch.int32, (MESH_MAXVTX,), "meshlet_vertices")
+    if alpha is not None:
+        _build.expect(alpha, torch.float32, (scene.meshlet_tris.shape[0], 8, 2 * MESH_MAXVTX), "meshlet_alpha")
+        alpha = alpha.contiguous()
     dev = mi.device
     K = mi.shape[0]
     lib = _build.lib()
@@ -78,12 +90,12 @@ def setup_cuda(tc, scene, params, width, height, capacity):
                   scene.meshlet_vertices.contiguous()]
     rc = lib.setup_launch(
         count_in.data_ptr(), *(a.data_ptr() for a in args), K,
-        *(a.data_ptr() for a in scene_args), prm, capacity,
+        *(a.data_ptr() for a in scene_args), None if alpha is None else alpha.data_ptr(), prm, capacity,
         block_counts.data_ptr(), block_offsets.data_ptr(), total.data_ptr(),
         rec.data_ptr(), aabb.data_ptr(), flat.data_ptr(), _build.stream_ptr(mi),
     )
-    _build.LAUNCHES["setup"] += 1
-    _build.check(rc, "setup")
+    _build.LAUNCHES[name] += 1
+    _build.check(rc, name)
     raw = total[0].to(torch.int64)
     count = torch.clamp_max(raw, capacity)
     flat = flat.to(torch.int64)
@@ -199,6 +211,10 @@ def setup_plain(tc: dict, scene, params, width: int, height: int, capacity: int)
         cols += [sx[i], sy[i], c["w"], *c["n"], c["u"], c["v"]]
     cols += [A["vid"], B["vid"], C["vid"], per_cluster(tc["draw_id"]), per_cluster(tc["mat_index"]),
              per_cluster(tc["post_pass"]), flat]
+    if "alpha" in tc:  # mask rows of post clusters, exact zeros elsewhere
+        cols.append(torch.zeros_like(flat))
+        mask_rows = tc["alpha"][mi][:, :, :MESH_MAXTRI]  # [K, 8, 96]
+        cols += [torch.where(is_post, mask_rows[:, i], 0.0) for i in range(8)]
     rec_all = torch.stack(cols, dim=-1).reshape(K * MESH_MAXTRI, len(cols))
     rec_all = torch.where(torch.isfinite(rec_all), rec_all, 0.0)
 

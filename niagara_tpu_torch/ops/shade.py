@@ -1,27 +1,82 @@
-"""G-buffer encode and composite for the opaque, untextured frame
-(niagara_tpu/ops/shade.py: `gbuffer_from_attrs` :260 untextured branch,
-`_lit_color` :378, `composite` :420 without shadow, bloom or transmission).
+"""G-buffer encode and composite (niagara_tpu/ops/shade.py):
+`gbuffer_from_attrs` (:260) with its material fetch (`_mat_rows` :159),
+texture sampling (`_sample_materials` :173, albedo/specular/emissive
+slots) and the shade-time alpha discard (:319); `_lit_color` (:378) and
+`composite` (:420) without shadow, bloom or transmission.  Normal maps
+(slot 1, the screen-space tangent frame) are not ported: a scene whose
+materials carry one raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..render import textures as tex_mod
 from . import cullmath
 
 _LUM = (0.3, 0.6, 0.1)
 
 
-def gbuffer_from_attrs(attrs_img, valid, scene):
+def _mat_rows(mat_row, mat):
+    """Per-pixel material megarows; tables of up to 16 materials as a
+    masked sum over the materials, like the reference (which makes
+    out-of-range ids zero rows, not clamped ones)."""
+    nm = mat_row.shape[0]
+    if nm > 16:
+        return mat_row[mat]
+    acc = torch.where((mat == 0)[..., None], mat_row[0], 0.0)
+    for i in range(1, nm):
+        acc = acc + torch.where((mat == i)[..., None], mat_row[i], 0.0)
+    return acc
+
+
+def _sample_materials(scene, textures, mat, uv, duv):
+    """Material factors times their sampled textures (shade.py:173).
+    Returns (albedo, specgloss, emissive)."""
+    row = _mat_rows(scene.mat_row, mat)
+    albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
+    tex_ids = row[..., 11:15].to(torch.int32)
+    mip = tex_mod.select_mip_from_area(duv, torch.clamp_min(row[..., 15], 1.0))
+    meta0 = None
+    if scene.has_texture_meta and textures.texels.shape[0] < (1 << 24):
+        meta0 = tuple(row[..., 16 + i].to(torch.int32) for i in range(4))
+
+    def tex(idx, meta=None):
+        return tex_mod.sample(textures, tex_ids[..., idx], uv, mip, meta=meta)
+
+    slots = scene.texture_slots
+    if slots[1]:
+        raise NotImplementedError("normal-mapped materials are not ported (screen-space tangent frame)")
+    if slots[0]:
+        t = tex(0, meta=meta0)
+        albedo = albedo * torch.where((tex_ids[..., 0] > 0)[..., None],
+                                      torch.cat([cullmath.from_srgb(t[..., :3]), t[..., 3:]], dim=-1), 1.0)
+    if slots[2]:
+        specgloss = specgloss * torch.where((tex_ids[..., 2] > 0)[..., None], cullmath.from_srgb(tex(2)), 1.0)
+    if slots[3]:
+        emissive = emissive * torch.where((tex_ids[..., 3] > 0)[..., None], cullmath.from_srgb(tex(3)[..., :3]), 1.0)
+    return albedo, specgloss, emissive
+
+
+def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
     """Dense G-buffer from the shade kernel's attribute planes [H,W,13]:
-    g0 = srgb albedo + log emissive, g1 = oct normal + gloss.  Returns
-    (g0, g1, valid)."""
+    g0 = srgb albedo + log emissive, g1 = oct normal + gloss.  With
+    `textures` (render.textures.TextureTable on the device) it samples the
+    materials' textures and discards post-pass pixels whose albedo alpha
+    is under 0.5.  Returns (g0, g1, valid)."""
     normal = attrs_img[..., 0:3]
     mat = attrs_img[..., 7].to(torch.int64)
     nrm = normal / torch.clamp_min(torch.sqrt(cullmath.dot3(normal, normal))[..., None], 1e-20)
-    albedo = scene.mat_diffuse[mat]
-    specgloss = scene.mat_specular[mat]
-    emissive = scene.mat_emissive[mat]
+    if textures is not None:
+        albedo, specgloss, emissive = _sample_materials(scene, textures, mat, attrs_img[..., 3:5], attrs_img[..., 12])
+        post = attrs_img[..., 8].to(torch.int32)
+        valid = valid & ~((post > 0) & (albedo[..., 3] < 0.5))
+    elif scene.mat_diffuse.shape[0] == 1:
+        albedo, specgloss, emissive = scene.mat_diffuse[0], scene.mat_specular[0], scene.mat_emissive[0]
+    else:
+        row = _mat_rows(scene.mat_row, mat)
+        albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
+    albedo, specgloss, emissive = (x.expand(nrm.shape[:-1] + x.shape[-1:]) for x in (albedo, specgloss, emissive))
     emissivef = cullmath.dot3(emissive, _LUM) / (cullmath.dot3(albedo[..., :3], _LUM) + 1e-3)
     g0 = torch.cat([cullmath.to_srgb(albedo[..., :3]), (torch.log2(1.0 + emissivef) / 5.0)[..., None]], dim=-1)
     g1 = torch.cat([cullmath.oct_encode(nrm) * 0.5 + 0.5, specgloss[..., 3:4],

@@ -7,7 +7,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from niagara_tpu.utils import math3d
+from ..utils import math3d
 
 from ..ops.cull import CullParams
 

@@ -1,16 +1,21 @@
-"""The opaque two-pass frame (niagara_tpu/render/frame.py, direct tile path).
+"""The two-pass frame (niagara_tpu/render/frame.py, direct tile path).
 
-early draw cull -> early cluster cull -> x-order -> setup -> raster ->
-depth pyramid -> late draw cull -> late cluster cull (+ visibility
-write-back) -> late setup -> raster -> shade (both streams) -> G-buffer ->
-composite.  Setup, raster and shade run the CUDA kernels on a GPU and
-their plain torch versions on the CPU; nothing reads counts back to the
-host inside a frame.
+early draw cull (class 0) -> early cluster cull -> x-order -> setup ->
+raster -> depth pyramid -> late draw cull (every class, merged) -> late
+cluster cull (+ visibility write-back) -> late setup -> raster -> shade
+(both streams) -> G-buffer -> composite.  Setup, raster and shade run the
+CUDA kernels on a GPU and their plain torch versions on the CPU; nothing
+reads counts back to the host inside a frame.
 
-This slice covers `post_passes=1` without bloom, shadows, textures, alpha
-masks or transmission, and always runs both passes; those options arrive
-with later slices.  Fragment ids: early records are [0, tri_capacity),
-late records tri_capacity + [0, late_tri_capacity) (frame.py:389).
+`post_passes=1` renders the opaque class; `post_passes=2` adds the
+alpha-test class (postPass 1), which the late pass culls together with
+class 0 and rasterizes in one merged stream through the raster kernel's
+alpha_test variant (class group (0, 1), frame.py:135-143, 367-429); a scene
+with opacity masks runs the setup kernel's alpha variant.  `render_frame`
+samples textures when given a table.  Not ported yet: bloom, shadows and
+the transmission layer (post_passes=3).  Fragment ids: early records are
+[0, tri_capacity), late records tri_capacity + [0, late_tri_capacity)
+(frame.py:389).
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from niagara_tpu.config import TILE_H, TILE_W
-from niagara_tpu.utils import math3d
+from ..config import TILE_H, TILE_W
+from ..utils import math3d
 
 from ..ops import cull, pyramid, raster, raster_tile, setup, shade
 from ..ops.raster import INVALID_FRAG, Framebuffer
@@ -54,6 +59,12 @@ class FrameConfig:
     # (tiny2, small, midA, midB) pair-emission class budgets; None derives
     # them from the pass's tri capacity (emit_pairs)
     pair_class_caps: tuple | None = None
+    # draw classes: 1 = opaque only; 2 adds the alpha-test class
+    post_passes: int = 1
+
+    def __post_init__(self):
+        if self.post_passes not in (1, 2):
+            raise NotImplementedError("post_passes must be 1 or 2: the transmission layer (3) is not ported")
 
     @property
     def late_cluster_cap(self):
@@ -74,6 +85,12 @@ class FrameConfig:
     @property
     def late_candidate_cap(self):
         return self.late_candidate_capacity or self.candidate_capacity or self.cluster_capacity
+
+    @property
+    def late_class_groups(self):
+        """The late pass's raster grouping (frame.py:135): opaque and
+        alpha-test classes share one stream."""
+        return ((0,),) if self.post_passes == 1 else ((0, 1),)
 
     @property
     def pyramid_levels_shape(self):
@@ -133,13 +150,17 @@ def state_to_numpy(state: FrameState) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _cluster_pass(scene, params, emit, lod, dvb, words, atlas, cfg, *, late, pyr_hw):
-    """Cluster cull + screen-x order + setup metadata for one pass."""
-    cdraw, cmi, ccount, new_words, n_draws, ddrop, cdrop, n_cand = cull.cluster_cull_direct(
+    """Cluster cull + screen-x order + setup metadata for one pass; the late
+    pass culls every class of the frame and keeps the survivors of its one
+    class group."""
+    groups, new_words, n_draws, ddrop, cdrop, n_cand = cull.cluster_cull_direct_multi(
         scene, params, emit, lod, dvb, words, atlas, late=late, pyramid_shape=pyr_hw,
         draw_capacity=cfg.cmd_capacity,
         cluster_capacity=cfg.late_cluster_cap if late else cfg.cluster_capacity,
         candidate_capacity=cfg.late_candidate_cap if late else cfg.candidate_cap,
+        num_classes=cfg.post_passes if late else 1, class_groups=cfg.late_class_groups if late else None,
     )
+    ((cdraw, cmi, ccount),) = groups
     cdraw, cmi = raster.order_clusters_by_x(scene, params, cdraw, cmi, ccount)
     tc = raster.transform_meta_direct(scene, cdraw, cmi, ccount)
     return tc, ccount, new_words, n_draws, ddrop, cdrop, n_cand
@@ -169,18 +190,19 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     depth, vis, rst_e = raster_tile.rasterize_tiles(
         st_e, depth, vis, pair_capacity=cfg.pair_capacity, frag_offset=0, **raster_kw)
 
-    # late pass: newly visible draws and clusters, occlusion-tested against
-    # the early depth, with the visibility write-back
+    # late pass: newly visible draws and clusters (and every visible draw of
+    # the alpha class), occlusion-tested against the early depth, with the
+    # visibility write-back
     atlas = pyramid.build_pyramid(depth, levels, ph, pw)
     emit_l, lod_l, new_draw_vis = cull.draw_cull(
-        scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw)
+        scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
     tc_l, ccount_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
         scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
     st_l = setup.setup_compact(tc_l, scene, params, cfg.width, cfg.height, cfg.late_tri_cap)
     carry_l = (depth, vis)
     depth, vis, rst_l = raster_tile.rasterize_tiles(
         st_l, depth, vis, pair_capacity=cfg.late_pair_cap,
-        frag_offset=cfg.tri_capacity, **raster_kw)
+        frag_offset=cfg.tri_capacity, alpha_test=cfg.post_passes == 2, **raster_kw)
 
     attrs = raster_tile.shade_tiles([rst_e["stream"], rst_l["stream"]], vis)
     if capture is not None:
@@ -189,6 +211,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
             raster=[(rst["tile_start"], rst["pair_tri"], st["rec"], off, *carry)
                     for rst, st, off, carry in ((rst_e, st_e, 0, carry_e),
                                                 (rst_l, st_l, cfg.tri_capacity, carry_l))],
+            raster_alpha_test=(False, cfg.post_passes == 2),
             shade=([rst_e["stream"], rst_l["stream"]], vis),
         )
     new_state = FrameState(draw_vis=new_draw_vis.to(torch.int32), vis_words=new_words)
@@ -212,10 +235,12 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
 
 
 def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cfg: FrameConfig,
-                 capture: dict | None = None):
-    """Render one frame.  Returns (image [H,W,3], fb, new_state, stats)."""
+                 textures=None, capture: dict | None = None):
+    """Render one frame; `textures` (render.textures.TextureTable on the
+    scene's device) textures the materials.  Returns (image [H,W,3], fb,
+    new_state, stats)."""
     fb, new_state, stats, attrs = frame_core(scene, state, params, cfg, capture=capture)
-    g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene)
+    g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures)
     image = shade.composite(
         g0, g1, fb.depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,

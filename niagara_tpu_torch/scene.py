@@ -3,16 +3,15 @@
 Mirrors niagara_tpu/scene.py: the host-side cooked arrays (`Geometry`,
 `Draws`, numpy SoA) and the static-shape device layout (`DeviceScene`).
 `upload` builds the layout in numpy exactly as the reference's `upload`
-does (scene.py:381) for every field the opaque frame reads; `from_numpy`
-turns that layout -- or the reference's own numpy `DeviceScene` -- into
-tensors on one device.
+does (scene.py:381) for every field the port reads, materials, opacity
+masks and texture metadata included; `from_numpy` turns that layout -- or
+the reference's own numpy `DeviceScene` -- into tensors on one device.
 
 Not mirrored: the TPU-only `meshlet_setup_row` (bf16-split channel rows for
 the Pallas setup kernel's DMA) and `meshlet_cull_blocks` (64-meshlet cull
 blocks of the legacy wavefront cull).  The CUDA setup kernel reads
 `meshlet_vdata` in f32 directly.  Vertex-level tables (`positions`,
-`normals`, `uvs`, `tangents`), textures and opacity masks join with the
-slices that read them.
+`normals`, `uvs`, `tangents`) join with the slices that read them.
 """
 
 from __future__ import annotations
@@ -23,8 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from niagara_tpu.config import MESH_MAXTRI, MESH_MAXVTX
-from niagara_tpu.utils import math3d
+from .config import MESH_MAXTRI, MESH_MAXVTX
+from .utils import math3d
 
 
 @dataclass
@@ -124,10 +123,21 @@ class DeviceScene:
     draw_lod_meshlet_count: object  # i32 [D, MAX_LODS]
     draw_lod_meshlet_offset: object  # i32 [D, MAX_LODS]
     draw_xform_row: object  # f32 [D, 8] position, scale, quaternion
+    # opacity masks, channel-major [Ma, 8, 128]: 4 mask halves + uv rect per
+    # meshlet triangle (lanes 96-127 zero); one zero row without masks
+    meshlet_alpha: object  # f32 [Ma, 8, 128]
     mat_diffuse: object  # f32 [NM,4]
     mat_specular: object  # f32 [NM,4]
     mat_emissive: object  # f32 [NM,3]
+    mat_textures: object  # i32 [NM,4] albedo/normal/specular/emissive, 1-based table ids (0 = none)
+    # material megarow: 0-3 diffuse, 4-7 specular, 8-10 emissive, 11-14 tex
+    # ids, 15 albedo mip-0 texel area, 16-19 albedo addressing metadata
+    # (mip-0 pool offset, w, h, mip count)
+    mat_row: object  # f32 [NM, 20]
     meshlet_visibility_count: int = 0
+    has_alpha_masks: bool = False  # meshlet_alpha holds baked masks
+    texture_slots: tuple = (False, False, False, False)  # material slots any material textures
+    has_texture_meta: bool = False  # mat_row cols 16-19 come from a texture table
 
     @property
     def num_draws(self) -> int:
@@ -138,7 +148,8 @@ class DeviceScene:
         return len(self.meshlet_triangle_count)
 
 
-_ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(DeviceScene) if f.name != "meshlet_visibility_count")
+_STATIC_FIELDS = ("meshlet_visibility_count", "has_alpha_masks", "texture_slots", "has_texture_meta")
+_ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(DeviceScene) if f.name not in _STATIC_FIELDS)
 
 
 def assign_meshlet_visibility_offsets(draws: Draws, meshes: Meshes) -> int:
@@ -179,9 +190,45 @@ def unpack_meshlet_refs(geometry: Geometry) -> tuple[np.ndarray, np.ndarray]:
     return vertex_ids, tris
 
 
-def upload(geometry: Geometry, draws: Draws, materials: dict | None = None) -> DeviceScene:
+def _albedo_area_column(materials: dict, texture_table) -> np.ndarray:
+    """[NM, 1] f32: each material's albedo mip-0 texel area (w*h), 1 when
+    untextured or without a table (scene.py:342)."""
+    col = np.ones((len(materials["diffuse"]), 1), np.float32)
+    if texture_table is None:
+        return col
+    ids = np.asarray(materials["textures"])[:, 0] + 1  # 1-based table ids
+    mw, mh = np.asarray(texture_table.mip_w), np.asarray(texture_table.mip_h)
+    ok = (ids > 0) & (ids < len(mw))
+    safe = np.where(ok, ids, 0)
+    col[:, 0] = np.where(ok, (mw[safe, 0] * mh[safe, 0]).astype(np.float32), 1.0)
+    return col
+
+
+def _albedo_meta_columns(materials: dict, texture_table) -> np.ndarray:
+    """[NM, 4] f32: each material's albedo addressing metadata (mip-0 pool
+    offset, w, h, mip count) for textures.sample's `meta` path
+    (scene.py:358); a 1x1 one-mip dummy without a table."""
+    cols = np.zeros((len(materials["diffuse"]), 4), np.float32)
+    cols[:, 1:4] = 1.0
+    if texture_table is None:
+        return cols
+    ids = np.asarray(materials["textures"])[:, 0] + 1
+    ok = (ids > 0) & (ids < len(texture_table.mip_count))
+    safe = np.where(ok, ids, 0)
+    cols[:, 0] = texture_table.mip_offset[safe, 0]
+    cols[:, 1] = texture_table.mip_w[safe, 0]
+    cols[:, 2] = texture_table.mip_h[safe, 0]
+    cols[:, 3] = texture_table.mip_count[safe]
+    return cols
+
+
+def upload(geometry: Geometry, draws: Draws, materials: dict | None = None,
+           alpha_masks: np.ndarray | None = None, texture_table=None) -> DeviceScene:
     """numpy device layout from cooked geometry + draws (scene.py:381).
-    Absent `materials`, one matte-white material, as in the reference."""
+    Absent `materials`, one matte-white material, as in the reference.
+    `alpha_masks` [M,96,8] (cooker.opacity.bake_opacity) enables the alpha
+    test of post-pass-1 draws; `texture_table` (render.textures, host
+    side) bakes each material's albedo mip metadata into `mat_row`."""
     vis_count = assign_meshlet_visibility_offsets(draws, geometry.meshes)
     vertex_ids, tris = unpack_meshlet_refs(geometry)
     assert vertex_ids.max(initial=0) < (1 << 24), "vertex ids must stay exact in f32 records"
@@ -191,6 +238,15 @@ def upload(geometry: Geometry, draws: Draws, materials: dict | None = None) -> D
             "specular": np.zeros((1, 4), dtype=np.float32),
             "emissive": np.zeros((1, 3), dtype=np.float32),
         }
+    if "textures" not in materials:
+        materials = dict(materials, textures=np.full((len(materials["diffuse"]), 4), -1, dtype=np.int32))
+    M = len(tris)
+    if alpha_masks is not None:
+        meshlet_alpha = np.zeros((M, 8, 2 * MESH_MAXVTX), np.float32)
+        meshlet_alpha[:, :, :MESH_MAXTRI] = np.transpose(alpha_masks.astype(np.float32), (0, 2, 1))
+    else:
+        meshlet_alpha = np.zeros((1, 8, 2 * MESH_MAXVTX), np.float32)
+    tex_ids = materials["textures"].astype(np.int32) + 1  # 1-based table ids, 0 = none
 
     positions = geometry.vpos.astype(np.float32)
     normals = math3d.unpack_normal(geometry.vnorm)
@@ -237,10 +293,26 @@ def upload(geometry: Geometry, draws: Draws, materials: dict | None = None) -> D
             ],
             axis=-1,
         ),
+        meshlet_alpha=meshlet_alpha,
         mat_diffuse=materials["diffuse"].astype(np.float32),
         mat_specular=materials["specular"].astype(np.float32),
         mat_emissive=materials["emissive"].astype(np.float32),
+        mat_textures=tex_ids,
+        mat_row=np.concatenate(
+            [
+                materials["diffuse"].astype(np.float32),
+                materials["specular"].astype(np.float32),
+                materials["emissive"].astype(np.float32),
+                tex_ids.astype(np.float32),
+                _albedo_area_column(materials, texture_table),
+                _albedo_meta_columns(materials, texture_table),
+            ],
+            axis=-1,
+        ),
         meshlet_visibility_count=vis_count,
+        has_alpha_masks=alpha_masks is not None,
+        texture_slots=tuple(bool((materials["textures"][:, i] >= 0).any()) for i in range(4)),
+        has_texture_meta=texture_table is not None,
     )
 
 
@@ -253,4 +325,7 @@ def from_numpy(np_scene, device) -> DeviceScene:
             for name in _ARRAY_FIELDS
         },
         meshlet_visibility_count=int(np_scene.meshlet_visibility_count),
+        has_alpha_masks=bool(np_scene.has_alpha_masks),
+        texture_slots=tuple(bool(x) for x in np_scene.texture_slots),
+        has_texture_meta=bool(np_scene.has_texture_meta),
     )

@@ -2,8 +2,10 @@
 
 Early draw cull + cluster_cull_direct, then the depth pyramid and the late
 draw cull (num_classes=1) + cluster_cull_direct_multi with the visibility
-write-back, on the same seeded inputs.  Every output is an integer or a
-mask and must match exactly; the pyramid (min and selection only) too."""
+write-back, on the same seeded inputs; then the alpha-classed scene's
+merged late pass (draw_cull(num_classes=2), cluster_cull_direct_multi with
+class groups).  Every output is an integer or a mask and must match
+exactly; the pyramid (min and selection only) too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,7 @@ from niagara_tpu.render.camera import Camera, RenderSettings, make_cull_params
 from niagara_tpu_torch import scene
 from niagara_tpu_torch.ops import cull, pyramid, raster
 from niagara_tpu_torch.render import camera
-from test_torch_scene import CAPS, H, W, parity_scene
+from test_torch_scene import CAPS, H, W, alpha_parity_scene, parity_scene
 
 
 def _eq(a, b, what):
@@ -97,3 +99,50 @@ def test_two_pass_cull_matches_reference(setting, late):
     for k in ("mi", "tri_count", "draw_id", "mat_index", "post_pass", "count"):
         _eq(jtc[k], ttc[k], k)
     np.testing.assert_array_equal(np.asarray(jtc["xform"]), ttc["xform"].numpy())
+
+
+@pytest.mark.parametrize("class_groups", [((0, 1),), None])
+def test_multi_class_late_cull_matches_reference(tmp_path_factory, class_groups):
+    """The merged late pass of the alpha-classed scene: draw_cull over both
+    classes (num_classes=2) and cluster_cull_direct_multi with the frame's
+    one merged group (0, 1) and with the default group per class, on seeded
+    draw visibility, visibility words and occluder."""
+    ds, _ = alpha_parity_scene(tmp_path_factory.mktemp("mesh"))
+    tds = scene.from_numpy(ds, "cpu")
+    levels, ph, pw = jpyramid.pyramid_shape(W, H)
+    jp, _ = make_cull_params(Camera(), W, H, pw, ph, RenderSettings())
+    tp, _ = camera.make_cull_params(camera.Camera(), W, H, pw, ph, camera.RenderSettings())
+    rng = np.random.default_rng(12)
+    draw_vis = (rng.random(ds.num_draws) < 0.5).astype(np.int32)
+    n_words = -(-max(ds.meshlet_visibility_count, 64) // 64) * 2
+    vis_words = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    depth = np.zeros((H, W), np.float32)
+    depth[:, : W // 2] = np.float32(0.1) / np.float32(6.0)
+    j_atlas = jpyramid.build_pyramid(jnp.asarray(depth), levels, ph, pw)
+    t_atlas = torch.from_numpy(np.array(j_atlas))
+    kw = dict(late=True, pyramid_shape=(ph, pw))
+
+    emit, lod, vis = jcull.draw_cull(ds, jp, jnp.asarray(draw_vis), j_atlas, num_classes=2, **kw)
+    t_dvb = torch.from_numpy(draw_vis)
+    t_emit, t_lod, t_vis = cull.draw_cull(tds, tp, t_dvb, t_atlas, num_classes=2, **kw)
+    for a, b, what in ((emit, t_emit, "emit"), (lod, t_lod, "lod"), (vis, t_vis, "visible")):
+        _eq(a, b, what)
+    post = ds.draw_post_pass > 0
+    assert np.asarray(emit)[post].sum() > 0 and np.asarray(emit)[~post].sum() > 0, "both classes emitted"
+
+    caps = dict(draw_capacity=CAPS["cmd_capacity"], cluster_capacity=CAPS["late_cluster_capacity"],
+                candidate_capacity=CAPS["late_candidate_capacity"], num_classes=2, class_groups=class_groups)
+    ref = jcull.cluster_cull_direct_multi(ds, jp, emit, lod, jnp.asarray(draw_vis), jnp.asarray(vis_words),
+                                          j_atlas, **kw, **caps)
+    got = cull.cluster_cull_direct_multi(tds, tp, t_emit, t_lod, t_dvb, torch.from_numpy(vis_words.astype(np.int64)),
+                                         t_atlas, **kw, **caps)
+    assert len(got[0]) == len(ref[0]) == (1 if class_groups else 2)
+    for g, (rg, tg) in enumerate(zip(ref[0], got[0])):
+        for a, b, what in zip(rg, tg, ("cluster_draw", "cluster_mi", "count")):
+            _eq(a, b, f"group {g} {what}")
+    for a, b, what in zip(ref[1:], got[1:], ("vis_words", "n_draws", "draw_dropped", "cluster_dropped", "candidates")):
+        _eq(a, b, what)
+    counts = [int(np.asarray(c)) for _, _, c in ref[0]]
+    assert all(c > 0 for c in counts), counts
+    classes = ds.draw_post_pass[np.asarray(ref[0][0][0])[: counts[0]]]
+    assert (classes == 0).any() and ((classes == 1).any() == bool(class_groups)), "merged group holds both classes"

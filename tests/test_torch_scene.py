@@ -15,16 +15,19 @@ import pytest
 
 from niagara_tpu import scene as jscene
 from niagara_tpu.cooker import cook as jcook
+from niagara_tpu.cooker import opacity as jopacity
 from niagara_tpu.cooker import synth as jsynth
 from niagara_tpu.render import camera as jcamera
 from niagara_tpu.render import presets as jpresets
+from niagara_tpu.render import textures as jtextures
 from niagara_tpu_torch import cooker, scene
-from niagara_tpu_torch.render import camera, presets
+from niagara_tpu_torch.render import camera, presets, textures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 W, H = 256, 128
 N_DRAWS = 48
+RING = N_DRAWS - 3  # the near ring of small_scene_draws
 CAPS = presets.small_capacities()
 
 
@@ -33,6 +36,25 @@ def parity_scene(cache_dir):
     scene (cooker.small_scene_draws)."""
     g = cooker.cook_procedural(str(cache_dir))
     return g, jscene.upload(g, cooker.small_scene_draws(g.meshes.count))
+
+
+def alpha_parity_scene(cache_dir):
+    """The small scene made textured and alpha-classed by the reference's
+    own functions, as bench.py does: planar uvs, synthesize_materials (draws
+    7, 15, ..., 47 in the alpha class), opacity masks baked from mip 1, the
+    texture table; the near ring (draw 45) joins the alpha class and the uv
+    chart has one tile, as in cooker.small_alpha_scene.  Returns (numpy DeviceScene of the
+    reference's upload, the reference's host texture table)."""
+    g = copy.deepcopy(cooker.cook_procedural(str(cache_dir)))
+    jsynth.synthesize_planar_uvs(g, tiles=cooker.synth.SMALL_UV_TILES)
+    draws = cooker.small_scene_draws(g.meshes.count)
+    materials, mips, mat_idx, post = jsynth.synthesize_materials(draws.count)
+    mat_idx[RING], post[RING] = len(mips) - 1, 1
+    draws.material_index[:] = mat_idx
+    draws.post_pass[:] = post
+    masks = jopacity.bake_opacity(g, draws, materials, mips)
+    table = jtextures.build_texture_table(mips=mips)
+    return jscene.upload(g, draws, materials, masks, texture_table=table), table
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +98,28 @@ def test_upload_matches_reference(geometry):
     assert t.num_draws == N_DRAWS
 
 
+def test_alpha_upload_matches_reference(geometry, tmp_path):
+    """The port's own alpha scene (cooker.small_alpha_scene, its texture
+    table and upload) equals the reference's: materials, opacity masks,
+    texture metadata, every array and static flag.  The caller's geometry
+    keeps its uvs (alpha_scene works on a copy)."""
+    ref, _ = alpha_parity_scene(tmp_path)
+    vuv = geometry.vuv.copy()
+    g, draws, materials, masks, mips = cooker.small_alpha_scene(geometry)
+    np.testing.assert_array_equal(geometry.vuv, vuv)
+    assert not np.array_equal(g.vuv, vuv)
+    ours = scene.upload(g, draws, materials, masks, texture_table=textures.build_texture_table(mips))
+    for name in scene._ARRAY_FIELDS:
+        a, b = getattr(ours, name), getattr(ref, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in scene._STATIC_FIELDS:
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert ours.has_alpha_masks and ours.texture_slots == (True, False, False, False) and ours.has_texture_meta
+    assert (ours.meshlet_alpha[:, 6] > 0).any(), "masks baked"
+    np.testing.assert_array_equal(np.nonzero(ours.draw_post_pass)[0], sorted([*range(7, N_DRAWS, 8), RING]))
+
+
 @pytest.mark.parametrize("settings", [{}, dict(occlusion=False, lod=False, debug_lod_step=2)])
 def test_make_cull_params_matches_reference(settings):
     ours, proj = camera.make_cull_params(camera.Camera(), 1920, 1080, 1024, 512, camera.RenderSettings(**settings))
@@ -88,11 +132,14 @@ def test_make_cull_params_matches_reference(settings):
 
 @pytest.mark.parametrize("draws", [1000, 1_000_000])
 def test_headline_capacities_match_reference(draws):
-    """The reference's budgets, plus pair-class budgets raised for the
-    port's mesh at 1M draws: never below the reference's implicit
-    (tri capacity fraction) values."""
+    """The reference's budgets, plus, at 1M draws, pair-class budgets and a
+    late pair budget raised for the port's mesh: never below the
+    reference's values (the implicit tri-capacity fractions for the pair
+    classes)."""
     ours, ref = presets.headline_capacities(draws), jpresets.headline_capacities(draws)
-    assert {k: ours[k] for k in ref} == ref
+    raised = {"late_pair_capacity"} if draws > 300_000 else set()
+    assert {k: ours[k] for k in ref if k not in raised} == {k: v for k, v in ref.items() if k not in raised}
+    assert all(ours[k] > ref[k] for k in raised)
     extra = set(ours) - set(ref)
     if draws <= 300_000:
         assert not extra
