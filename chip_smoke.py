@@ -38,7 +38,11 @@ Phases, each reported on its own line:
                    alpha_test variant in the merged late pass;
   alpha kernels -- the alpha variants (and the opaque raster of the early
                    pass) replayed on a transitional and a steady alpha frame
-                   against their plain versions, exact, with a tie merge;
+                   against their plain versions, exact, with a tie merge
+                   and (alpha_test) with random mask bits; the pixels the
+                   masks change (against the opaque variant on the same
+                   inputs): the path's own masks may change none, the
+                   random ones must;
   profile       -- torch.profiler over five more frames of each path:
                    device ops and kernel launches per frame, device busy
                    time and idle share, the costliest device ops.
@@ -334,19 +338,31 @@ def setup_work(tc, out, alpha: bool) -> tuple[float, float]:
     return nbytes, SETUP_OPS * float(tc["tri_count"][:k].sum())
 
 
-def raster_work(args, alpha: bool, H: int, W: int) -> tuple[float, float]:
+def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int) -> tuple[float, float]:
     """(bytes, operations) one raster call needs: tile starts, pair list,
     the staged columns of each record it references (13, 27 with masks),
-    the carried and written depth/vis; RASTER_OPS per (pair, pixel) and,
-    with masks, MASK_OPS per covered pixel of a masked record (its screen
-    area from the record's corners, at most its clamped box)."""
+    the carried and written depth/vis; RASTER_OPS per (pair, pixel) for
+    the pixels of the pair's tile whose centres lie in the triangle's box
+    (no other pixel can be covered; the kernel tests all 1,024) and, with
+    masks, MASK_OPS per covered pixel of a masked record (its screen area
+    from the record's corners, at most its clamped box)."""
     import torch
 
     ts, pt, rec = args[:3]
     p = int(ts[-1])
     ids = torch.unique(pt[:p].long())
     nbytes = ts.numel() * 4 + p * 4 + ids.numel() * (27 if alpha else 13) * 4 + H * W * 16
-    ops = RASTER_OPS * p * 1024.0
+    # the box: x0/x1 in cols 12/14, y1 in col 15; col 13 holds the id, so y0
+    # is setup's floor of the corners' smallest y (cols 17/25/33), 0 when a
+    # corner is behind the eye (w, cols 18/26/34)
+    r = rec[:, [12, 14, 15, 17, 25, 33, 18, 26, 34]][pt[:p].long()].double()
+    behind = r[:, 6:9].min(dim=1).values <= 1e-9
+    y0 = torch.where(behind, 0.0, torch.clamp(torch.floor(r[:, 3:6].min(dim=1).values), 0, H - 1))
+    tile = torch.searchsorted(ts[1:].long(), torch.arange(p, device=ts.device), right=True)
+    tx, ty = (tile % tiles_x) * 128, (tile // tiles_x) * 8
+    nx = torch.clamp(torch.minimum(r[:, 1], tx + 128) - torch.maximum(r[:, 0], tx), min=0)
+    ny = torch.clamp(torch.minimum(r[:, 2], ty + 8) - torch.maximum(y0, ty), min=0)
+    ops = RASTER_OPS * float((nx * ny).sum())
     if alpha:
         r = rec[ids]
         r = r[r[:, 54] > 0].double()
@@ -399,27 +415,47 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) ->
 
     # the frame's two passes, then a tie merge: the pass's records onto its
     # own result re-rastered at a higher id offset -- every pixel they cover
-    # ties and the merge must hand it to the smaller id, giving the result
+    # ties and the merge must hand it to the smaller id, giving the result.
+    # The alpha_test variant also takes the pass's records with seeded
+    # random mask bits: the path's visible alpha draws pick coarse LODs
+    # whose conservative masks may have no clear cell, which would leave
+    # the discard branch untested at this size
     for pass_, args, alpha in zip(("early", "late"), capture["raster"], capture["raster_alpha_test"]):
         name = "raster_alpha" if alpha else "raster"
         args = (*args, tiles_x)
         ts, pt, rec, off, d0, v0, _ = args
         shifted = raster_tile.raster_cuda(ts, pt, rec, off + cfg.tri_capacity + cfg.late_tri_cap, d0, v0, tiles_x,
                                           alpha_test=alpha)
-        ties = (ts, pt, rec, off, *shifted, tiles_x)
-        err, results = 0.0, []
-        for case, a in (("", args), (" tie merge", ties)):
+        cases = [("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))]
+        if alpha:
+            gen = torch.Generator(device=rec.device).manual_seed(0)
+            bits = torch.randint(0, 1 << 16, (rec.shape[0], 4), generator=gen, device=rec.device).float()
+            noisy = rec.clone()
+            noisy[:, 48:52] = torch.where((rec[:, 54] > 0)[:, None], bits, rec[:, 48:52])
+            cases.append((" random masks", (ts, pt, noisy, *args[3:])))
+            r = rec[torch.unique(pt[:int(ts[-1])].long())]
+            r = r[r[:, 54] > 0]
+            log(f"{tag}kernels", f"{label} {name} {pass_}: {int((r[:, 48:52] != 65535).any(dim=1).sum())} of "
+                f"{r.shape[0]} masked records have a clear mask cell")
+        err, results, discard = 0.0, [], ""
+        for case, a in cases:
             kd, kv = raster_tile.raster_cuda(*a, alpha_test=alpha)
             pd, pv = raster_tile.raster_plain(*a, alpha_test=alpha)
             check(torch.equal(kv, pv), f"{label} {name} {pass_}{case}: vis differs")
             err = max(err, max_abs_err(kd, pd))
             results.append(kv)
-        check(torch.equal(*results), f"{label} {name} {pass_}: the tie merge must give the pass's result")
-        log(f"{tag}kernels", f"{label} {name} {pass_}: {int(ts[-1])} pairs, vis equal (tie merge too), "
-            f"depth max_abs_err {err} (tolerance 0)")
+            if alpha and case != " tie merge":
+                # what the masks do: the same inputs without the mask test
+                changed = int((raster_tile.raster_cuda(*a, alpha_test=False)[1] != kv).sum())
+                what = "random masks" if case else "the path's masks"
+                discard += f", {what} change {changed} px vs the test off"
+                check(case == "" or changed > 0, "random masks discard nothing")
+        check(torch.equal(results[0], results[1]), f"{label} {name} {pass_}: the tie merge must give the pass's result")
+        log(f"{tag}kernels", f"{label} {name} {pass_}: {int(ts[-1])} pairs, vis equal (tie merge"
+            f"{', random masks' if alpha else ''} too), depth max_abs_err {err} (tolerance 0){discard}")
         check(err == 0.0, f"{name} depth differs")
         add(name, err, cuda_ms(lambda: raster_tile.raster_cuda(*args, alpha_test=alpha), 10),
-            cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=alpha), 2), raster_work(args, alpha, H, W))
+            cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=alpha), 2), raster_work(args, alpha, H, W, tiles_x))
 
     streams, vis = capture["shade"]
     ka = raster_tile.shade_cuda(streams, vis)

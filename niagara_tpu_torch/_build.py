@@ -1,11 +1,14 @@
 """Build and bind the CUDA kernels in csrc/.
 
-Each source compiles in its own nvcc process, all started together, and
-the objects link into one shared library with a plain C interface (no
-PyTorch headers: seconds, not minutes), loaded with ctypes.  The library
-lands in build/ under a name carrying the hash of the sources and flags,
-so it is rebuilt exactly when one of them changes.  Pointers go in as `tensor.data_ptr()`, launches go on PyTorch's
-current stream, and every C entry returns `cudaGetLastError()`.
+Each source compiles in its own nvcc process, all started together (the
+build takes as long as the slowest source, not the sum: the end-to-end
+check builds from scratch inside a fixed time limit that its phases share
+as they grow), and the objects link into one shared library with a plain
+C interface (no PyTorch headers: seconds, not minutes), loaded with
+ctypes.  The library lands in build/ under a name carrying the hash of
+the sources and flags, so it is rebuilt exactly when one of them changes.
+Pointers go in as `tensor.data_ptr()`, launches go on PyTorch's current
+stream, and every C entry returns `cudaGetLastError()`.
 
 `LAUNCHES` counts the kernel launches of each wrapper: a wrapper adds one
 right after it launches its kernel, and nowhere else.

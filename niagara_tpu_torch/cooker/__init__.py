@@ -2,9 +2,6 @@
 `cook` (OBJ -> C++ cooker -> Geometry, the procedural stand-in mesh),
 `synth` (draw scatter, small scene, planar uvs, materials), `opacity`
 (opacity-mask bake), `bindings` (ctypes to the C++ cooker in native/).
-
-Run `python -m niagara_tpu_torch.cooker` to write and cook the procedural
-mesh and print its statistics.
 """
 
 from .cook import CACHE_DIR, DIAMETER, assemble, cook_obj_meshes, cook_procedural, procedural_mesh, procedural_obj

@@ -6,9 +6,6 @@
 * `procedural_obj` writes the port's stand-in mesh: a closed, non-convex,
   seeded noise-displaced thin torus with smooth normals (57,344
   triangles), so the port needs no external asset.
-
-Run `python -m niagara_tpu_torch.cooker` to write and cook the mesh and
-print its statistics.
 """
 
 from __future__ import annotations

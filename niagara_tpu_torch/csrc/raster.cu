@@ -27,12 +27,14 @@
 // shift, which equals the reference's f32 form floor(half * 2^-(b mod 16))
 // mod 2 on every input (tests/test_torch_alpha.py checks all of them).
 //
-// What bounds it here: ~20 f32 ops per (pixel, record) and 52 bytes of record
-// per pair from L2 (108 in the alpha variant, plus ~30 ops for a covered
-// pixel of a masked record); at the headline ~1M pairs over 2,025 tiles that
-// is ~1e9 pixel tests, so it is compute-bound on the per-pixel edge tests.
-// The TPU kernel's x-band narrowing (a VPU-width trick) is not carried over;
-// every record is tested on all 1024 pixels of its tile.
+// Cost: ~28 f32 ops per (pixel, record) test and 52 bytes of record per pair
+// from L2 (108 in the alpha variant, plus ~34 ops for a covered pixel of a
+// masked record).  Every record is tested on all 1024 pixels of its tile --
+// the TPU kernel's x-band narrowing (a VPU-width trick) is not carried over
+// and nothing clips to the triangle's box -- although at the headline a
+// triangle's box holds a few dozen of those pixels: most of the tests are
+// work the inputs do not need, which is why the kernel sits far above its
+// bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

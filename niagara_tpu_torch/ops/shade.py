@@ -1,8 +1,9 @@
 """G-buffer encode and composite (niagara_tpu/ops/shade.py):
-`gbuffer_from_attrs` (:260) with its material fetch (`_mat_rows` :159),
-texture sampling (`_sample_materials` :173, albedo/specular/emissive
-slots) and the shade-time alpha discard (:319); `_lit_color` (:378) and
-`composite` (:420) without shadow, bloom or transmission.  Normal maps
+`gbuffer_from_attrs` (:260) with its material fetch (`_mat_rows` :159,
+here one gather), texture sampling (`_sample_materials` :173,
+albedo/specular/emissive slots) and the shade-time alpha discard
+(:319); `_lit_color` (:378) and `composite` (:420) without shadow,
+bloom or transmission.  Normal maps
 (slot 1, the screen-space tangent frame) are not ported: a scene whose
 materials carry one raises.
 """
@@ -17,23 +18,10 @@ from . import cullmath
 _LUM = (0.3, 0.6, 0.1)
 
 
-def _mat_rows(mat_row, mat):
-    """Per-pixel material megarows; tables of up to 16 materials as a
-    masked sum over the materials, like the reference (which makes
-    out-of-range ids zero rows, not clamped ones)."""
-    nm = mat_row.shape[0]
-    if nm > 16:
-        return mat_row[mat]
-    acc = torch.where((mat == 0)[..., None], mat_row[0], 0.0)
-    for i in range(1, nm):
-        acc = acc + torch.where((mat == i)[..., None], mat_row[i], 0.0)
-    return acc
-
-
-def _sample_materials(scene, textures, mat, uv, duv):
-    """Material factors times their sampled textures (shade.py:173).
-    Returns (albedo, specgloss, emissive)."""
-    row = _mat_rows(scene.mat_row, mat)
+def _sample_materials(scene, textures, row, uv, duv):
+    """Material factors of the per-pixel megarows `row` times their
+    sampled textures (shade.py:173).  Returns (albedo, specgloss,
+    emissive)."""
     albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
     tex_ids = row[..., 11:15].to(torch.int32)
     mip = tex_mod.select_mip_from_area(duv, torch.clamp_min(row[..., 15], 1.0))
@@ -67,16 +55,21 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
     normal = attrs_img[..., 0:3]
     mat = attrs_img[..., 7].to(torch.int64)
     nrm = normal / torch.clamp_min(torch.sqrt(cullmath.dot3(normal, normal))[..., None], 1e-20)
+    # one megarow per pixel: gathered, or broadcast from a one-material
+    # table (where the gather would only read one row, and costs as much
+    # as any: every pixel hits the same few cache lines).  The reference
+    # fetches tables of up to 16 by a masked sum over them (out-of-range
+    # ids giving zero rows), a workaround for the TPU's gather; here every
+    # id is in range -- uncovered pixels carry attribute 0, covered ones
+    # their draw's material index -- so the rows are the same
+    nm = scene.mat_row.shape[0]
+    row = scene.mat_row[0].expand(*mat.shape, -1) if nm == 1 else scene.mat_row[mat]
     if textures is not None:
-        albedo, specgloss, emissive = _sample_materials(scene, textures, mat, attrs_img[..., 3:5], attrs_img[..., 12])
+        albedo, specgloss, emissive = _sample_materials(scene, textures, row, attrs_img[..., 3:5], attrs_img[..., 12])
         post = attrs_img[..., 8].to(torch.int32)
         valid = valid & ~((post > 0) & (albedo[..., 3] < 0.5))
-    elif scene.mat_diffuse.shape[0] == 1:
-        albedo, specgloss, emissive = scene.mat_diffuse[0], scene.mat_specular[0], scene.mat_emissive[0]
     else:
-        row = _mat_rows(scene.mat_row, mat)
         albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
-    albedo, specgloss, emissive = (x.expand(nrm.shape[:-1] + x.shape[-1:]) for x in (albedo, specgloss, emissive))
     emissivef = cullmath.dot3(emissive, _LUM) / (cullmath.dot3(albedo[..., :3], _LUM) + 1e-3)
     g0 = torch.cat([cullmath.to_srgb(albedo[..., :3]), (torch.log2(1.0 + emissivef) / 5.0)[..., None]], dim=-1)
     g1 = torch.cat([cullmath.oct_encode(nrm) * 0.5 + 0.5, specgloss[..., 3:4],

@@ -14,10 +14,12 @@ material branch of ops/shade.py).
   integer texel addresses equal; the bilinear weights round alike).
 * gbuffer_from_attrs: seeded attribute planes (normals, uv, material,
   post class, uv derivative) through the textured branch with its
-  shade-time alpha discard, and through the multi-material untextured
-  branch.  valid equal; g0/g1 within 1.2e-7 (measured 5.96e-8, one ulp
-  at 1: the reference's sRGB pow and log2 run on XLA's CPU math
-  library, the port's on PyTorch's)."""
+  shade-time alpha discard, through the multi-material untextured branch
+  and with the one-material default table (the port fetches all three by
+  one per-pixel gather; the reference by a masked sum or a broadcast).
+  valid equal; g0/g1 within 1.2e-7 (measured 5.96e-8, one ulp at 1: the
+  reference's sRGB pow and log2 run on XLA's CPU math library, the
+  port's on PyTorch's)."""
 
 import copy
 
@@ -165,14 +167,20 @@ def _attrs(h=16, w=64, seed=9):
     return a, rng.random((h, w)) < 0.9
 
 
-@pytest.mark.parametrize("textured", [True, False])
+@pytest.mark.parametrize("textured", [True, False, pytest.param(None, id="one_material")])
 def test_gbuffer_materials_match_reference(tmp_path, textured):
+    """textured None: the default one-material table (the opaque frame's),
+    every id 0."""
     g = cooker.cook_procedural(str(tmp_path))
-    g, draws, materials, masks, mips = cooker.alpha_scene(g, cooker.synthesize_draws(g.meshes.count, 64))
-    table = textures.build_texture_table(mips)
-    materials = dict(materials, diffuse=np.random.default_rng(2).uniform(0.2, 1, (8, 4)).astype(np.float32))
-    np_scene = jscene.upload(g, draws, materials, masks, texture_table=table)
     attrs, valid = _attrs()
+    if textured is None:
+        np_scene = jscene.upload(g, cooker.synthesize_draws(g.meshes.count, 64))
+        attrs[..., 7:9] = 0.0
+    else:
+        g, draws, materials, masks, mips = cooker.alpha_scene(g, cooker.synthesize_draws(g.meshes.count, 64))
+        table = textures.build_texture_table(mips)
+        materials = dict(materials, diffuse=np.random.default_rng(2).uniform(0.2, 1, (8, 4)).astype(np.float32))
+        np_scene = jscene.upload(g, draws, materials, masks, texture_table=table)
     jtab = jax.device_put(jtextures.build_texture_table(mips=mips)) if textured else None
     ttab = textures.to_device(table, "cpu") if textured else None
     ref = jshade.gbuffer_from_attrs(jnp.asarray(attrs), jnp.asarray(valid), jax.device_put(np_scene), textures=jtab)
