@@ -43,9 +43,31 @@ Phases, each reported on its own line:
                    masks change (against the opaque variant on the same
                    inputs): the path's own masks may change none, the
                    random ones must;
-  profile       -- torch.profiler over five more frames of each path:
-                   device ops and kernel launches per frame, device busy
-                   time and idle share, the costliest device ops.
+  sun small     -- the small alpha scene with a 256x256 sun map: the static
+                   map of all but its last three draws, then two frames that
+                   move those three (the animated tail), update the map on
+                   their dirty band (a partial one) and render shadowed;
+                   kernels on the card against the plain path on the CPU;
+  sun build     -- the benchmark's shadowed frame: the static 2048x2048 sun
+                   map of the alpha scene's first 980,000 draws, 60 batches
+                   of 16,384, loss-free;
+  sun window    -- the animated tail's (the last 20,000 draws) dirty band,
+                   and a forced mid-map band (tile rows 96-127): band rows
+                   equal a full update's bit for bit, the bench band spliced
+                   by pack_band equals a full repack, the forced band reports
+                   the tail's pairs outside it;
+  sun warmup/sun main -- the animated shadowed frame (bench.py:335-347): per
+                   frame move the tail, update the band, splice it, render
+                   with shadows; two cold frames, then three steady ones with
+                   the counters at zero, loss-free, the window variant
+                   launched once a frame, a shadowed share above 0;
+  sun kernels   -- the window variant (both instances, tie merge) replayed
+                   on the steady frame's band and on the forced band against
+                   raster_plain, exact;
+  profile       -- torch.profiler over five more frames of each path (and
+                   of the sun path's update + splice alone): device ops and
+                   kernel launches per frame, device busy time and idle
+                   share, the costliest device ops.
 The line before the last is the per-kernel JSON record (times, launches and
 bounds of the steady frames); the last line is {"ok": true, "device": ...}.
 Any failed check raises (nonzero exit).
@@ -75,6 +97,9 @@ F32_OPS_S = 67e12
 # per covered pixel (weights, six interpolated channels, uv/pixel areas)
 SETUP_OPS, RASTER_OPS, MASK_OPS, SHADE_OPS = 420, 28, 34, 70
 REC_BYTES = 56 * 4
+# the benchmark's sun map (bench.py:64-66, 143-266): 2048^2, static draws in
+# batches of 16,384, the last 2% of the draws animated
+SUN_MAP, SUN_BATCH = 2048, 1 << 14
 
 
 def log(phase: str, msg: str) -> None:
@@ -160,7 +185,7 @@ def main() -> int:
         return 2
     from niagara_tpu_torch import _build, cooker, scene
     from niagara_tpu_torch.cooker import bindings
-    from niagara_tpu_torch.ops import raster_tile, setup
+    from niagara_tpu_torch.ops import raster_tile, setup, sunmap
     from niagara_tpu_torch.render import camera, frame, presets, textures
 
     dev = torch.device("cuda", 0)
@@ -191,12 +216,14 @@ def main() -> int:
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = {"setup": 6, "setup_alpha": 0, "raster": 6, "raster_alpha": 0, "shade": 3}
+    expected = {"setup": 6, "setup_alpha": 0, "raster": 6, "raster_alpha": 0, "raster_window": 0,
+                "raster_alpha_window": 0, "shade": 3}
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile)
     kernels = {r["name"]: dict(r, path="opaque", launches=opaque["launches"][r["name"]]) for r in rows}
-    profile_frames("profile", ds, None, opaque["state"], opaque["params"], opaque["sp"], cfg, frame)
+    profile_frames("profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], cfg)[2],
+                   opaque["state"])
     del ds, opaque
     torch.cuda.empty_cache()
 
@@ -217,7 +244,8 @@ def main() -> int:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = {"setup": 0, "setup_alpha": 6, "raster": 3, "raster_alpha": 3, "shade": 3}
+    expected = {"setup": 0, "setup_alpha": 6, "raster": 3, "raster_alpha": 3, "raster_window": 0,
+                "raster_alpha_window": 0, "shade": 3}
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
@@ -225,9 +253,22 @@ def main() -> int:
     for r in rows:
         if r["name"] in ("setup_alpha", "raster_alpha"):
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
-    profile_frames("alpha profile", ds, tex, alpha["state"], alpha["params"], alpha["sp"], cfg, frame)
+    profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
+                                                                    textures=tex)[2], alpha["state"])
+    del alpha
+    torch.cuda.empty_cache()
 
-    order = ("setup", "setup_alpha", "raster", "raster_alpha", "shade")
+    # the shadowed, animated textured frame: the sun map
+    sun_small("sun small", dev, geometry, scene, camera, frame, presets, textures, sunmap, cooker)
+    cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, shadows=True,
+                            **presets.headline_capacities(ds.num_draws))
+    sun = run_sun(ds, da, tex, cfg, dev, frame, camera, presets, sunmap, _build, smi)
+    kernels["raster_alpha_window"] = dict(compare_window("sun kernels", sun, raster_tile), path="sun",
+                                          launches=sun["launches"]["raster_alpha_window"])
+    profile_frames("sun profile", lambda st, i: sun["step"](st, 0.3 * (i + 6))[0][2], sun["state"])
+    profile_frames("sun update profile", lambda st, i: sun["update_step"](0.3 * (i + 11))[1], None)
+
+    order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -338,14 +379,16 @@ def setup_work(tc, out, alpha: bool) -> tuple[float, float]:
     return nbytes, SETUP_OPS * float(tc["tri_count"][:k].sum())
 
 
-def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int) -> tuple[float, float]:
+def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int, band_row0: int = 0,
+                grid_h: int | None = None) -> tuple[float, float]:
     """(bytes, operations) one raster call needs: tile starts, pair list,
     the staged columns of each record it references (13, 27 with masks),
     the carried and written depth/vis; RASTER_OPS per (pair, pixel) for
     the pixels of the pair's tile whose centres lie in the triangle's box
     (no other pixel can be covered; the kernel tests all 1,024) and, with
     masks, MASK_OPS per covered pixel of a masked record (its screen area
-    from the record's corners, at most its clamped box)."""
+    from the record's corners, at most its clamped box).  A band of H rows
+    sits band_row0 tile rows down the grid_h-row grid its records live in."""
     import torch
 
     ts, pt, rec = args[:3]
@@ -357,9 +400,9 @@ def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int) -> tuple[float,
     # corner is behind the eye (w, cols 18/26/34)
     r = rec[:, [12, 14, 15, 17, 25, 33, 18, 26, 34]][pt[:p].long()].double()
     behind = r[:, 6:9].min(dim=1).values <= 1e-9
-    y0 = torch.where(behind, 0.0, torch.clamp(torch.floor(r[:, 3:6].min(dim=1).values), 0, H - 1))
+    y0 = torch.where(behind, 0.0, torch.floor(r[:, 3:6].min(dim=1).values))
     tile = torch.searchsorted(ts[1:].long(), torch.arange(p, device=ts.device), right=True)
-    tx, ty = (tile % tiles_x) * 128, (tile // tiles_x) * 8
+    tx, ty = (tile % tiles_x) * 128, (tile // tiles_x + band_row0) * 8
     nx = torch.clamp(torch.minimum(r[:, 1], tx + 128) - torch.maximum(r[:, 0], tx), min=0)
     ny = torch.clamp(torch.minimum(r[:, 2], ty + 8) - torch.maximum(y0, ty), min=0)
     ops = RASTER_OPS * float((nx * ny).sum())
@@ -370,7 +413,7 @@ def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int) -> tuple[float,
         # a triangle crossing the camera plane has far-off corners: its
         # clamped screen box bounds what it covers (x0/x1 in cols 12/14;
         # col 13 holds the id, so y from the corners, clamped)
-        sy = torch.clamp(r[:, [17, 25, 33]], 0, H)
+        sy = torch.clamp(r[:, [17, 25, 33]], 0, grid_h or H)
         box = (r[:, 14] - r[:, 12]) * (sy.max(dim=1).values - sy.min(dim=1).values)
         ops += MASK_OPS * float(torch.minimum(area.abs(), box).sum())
     return nbytes, ops
@@ -483,8 +526,245 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) ->
     return out
 
 
-def profile_frames(tag, ds, tex, state, params, sp, cfg, frame, n: int = 5) -> None:
-    """torch.profiler over n chained frames: device ops and kernel launches
+def animate(sc, static_n: int, t: float):
+    """The draws from static_n on moved by 2 (sin t, 0, 1 - cos t), as
+    bench.py's animate_tail / animate_scene (bench.py:184-193, 325-332).
+    Returns (moved scene, its animated tail as a slice_draws view)."""
+    import dataclasses
+
+    import torch
+
+    t = np.float32(t)
+    delta = torch.tensor(np.array([np.sin(t), 0.0, 1.0 - np.cos(t)], np.float32) * np.float32(2.0),
+                         device=sc.draw_position.device)
+    pos, xf = sc.draw_position.clone(), sc.draw_xform_row.clone()
+    pos[static_n:] += delta
+    xf[static_n:, 0:3] += delta
+    moved = dataclasses.replace(sc, draw_position=pos, draw_xform_row=xf)
+    return moved, moved.slice_draws(static_n, sc.num_draws)
+
+
+def tail_window(sunmap, sf, sc, static_n: int, map_h: int, texel: float):
+    """The dirty band of the animated tail (bench.py:232-236): its spheres
+    at rest plus the motion bound of 4 world units and two texels."""
+    tail = sc.slice_draws(static_n, sc.num_draws)
+    return sunmap.dirty_tile_rows(sf, tail.draw_position, tail.draw_mesh_row[:, 3] * tail.draw_scale, map_h,
+                                  margin=4.0 + 2.0 * texel)
+
+
+def sun_small(tag, dev, geometry, scene, camera, frame, presets, textures, sunmap, cooker) -> None:
+    """The small alpha scene with a 256x256 sun map and an animated tail
+    of its last three draws whose band is partial: two shadowed frames,
+    kernels on the card vs the plain path on the CPU.  Maps, stats, state
+    and vis equal; the image within 2e-6."""
+    import torch
+
+    g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
+    table = textures.build_texture_table(mips)
+    np_scene = scene.upload(g, d, mats, masks, texture_table=table)
+    cfg = frame.FrameConfig(width=256, height=128, post_passes=2, shadows=True, **presets.small_capacities())
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    m, static_n = 256, np_scene.num_draws - 3
+    kw = dict(map_w=m, map_h=m, cmd_capacity=256, cluster_capacity=1024, tri_capacity=1 << 14,
+              pair_capacity=1 << 15)
+    runs = {}
+    for where in ("cpu", dev):
+        sc = scene.from_numpy(np_scene, where)
+        tex = textures.to_device(table, where)
+        sf = sunmap.fit_sun_to_draws(sp.sun_direction, d, device=where)
+        static, drop = sunmap.build_static_sun_map(sc, sf, batch=16, num_draws=static_n, **kw)
+        win = tail_window(sunmap, sf, sc, static_n, m, sunmap.map_texel_world(sf, m, m))
+        a, b = win[0] * 8, (win[0] + win[1]) * 8
+        packed_static = sunmap.pack_sun_map(static)
+        st = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, where)
+        maps, shadows = [static], []
+        for i in range(2):
+            moved, tail = animate(sc, static_n, 0.3 * (i + 1))
+            band, udrop = sunmap.update_sun_map(tail, sf, static, None, row_window=win, **kw)
+            drop = drop + udrop
+            packed = sunmap.pack_band(packed_static, band, a, m, row_above=static[a - 1] if a else None,
+                                      row_below=static[b] if b < m else None)
+            cap = {}
+            img, fb, st, stats = frame.render_frame(moved, st, params, sp, cfg, textures=tex, sun=(sf, packed, (m, m)),
+                                                    capture=cap)
+            maps += [band, packed]
+            shadows.append(cap["shadow"])
+        runs[str(where)] = dict(img=img.cpu(), depth=fb.depth.cpu(), vis=fb.vis.cpu(), stats=stats.to_dict(),
+                                state=frame.state_to_numpy(st), maps=[x.cpu() for x in maps],
+                                shadow=[x.cpu() for x in shadows], win=win, drop=int(drop))
+    c, k = runs["cpu"], runs[str(dev)]
+    check(c["win"] == k["win"] and 0 < c["win"][1] < m // 8, f"the tail's band {c['win']} must be partial")
+    check(c["drop"] == k["drop"] == 0, "the small sun map dropped work")
+    check(all(torch.equal(x, y) for x, y in zip(c["maps"], k["maps"])), "sun maps differ from the CPU plain path")
+    check(all(np.array_equal(c["stats"][f], k["stats"][f]) for f in c["stats"]), "frame stats differ")
+    check(all(np.array_equal(x, y) for x, y in zip(c["state"], k["state"])), "frame state differs")
+    check(torch.equal(c["vis"], k["vis"]) and torch.equal(c["depth"], k["depth"]), "vis/depth differ")
+    term_err = max(float((x - y).abs().max()) for x, y in zip(c["shadow"], k["shadow"]))
+    image_err = float((c["img"] - k["img"]).abs().max())
+    covered = c["vis"] != INVALID
+    shaded = float(((c["shadow"][-1] < 1.0) & covered).sum() / covered.sum())
+    log(tag, f"256x128 two animated frames, 256^2 sun map, tail band tile rows {c['win'][0]}.."
+        f"{c['win'][0] + c['win'][1]} of {m // 8}: kernels on {dev} vs plain on cpu: maps, stats, state, vis, "
+        f"depth equal; shadow term max_abs_err {term_err:.3g}, image max_abs_err {image_err:.3g} (tolerance "
+        f"2e-6: exp2/pow differ between the CPU's and the GPU's math libraries); shadowed share of covered px "
+        f"{shaded:.3f}; covered texels {int((c['maps'][0] > 0).sum())}")
+    check(image_err <= 2e-6 and term_err <= 2e-6 and shaded > 0.0, "small shadowed frame differs or is unshadowed")
+
+
+def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, smi) -> dict:
+    """The benchmark's shadowed, animated frame: the static sun map of the
+    first 98% of the draws (sun build), the tail's band and a forced band
+    held to a full update (sun window), then two cold and three steady
+    animated frames (sun warmup / sun main).  Returns the kept update
+    inputs (steady frame 4, forced band), the launches, the state and the
+    frame step."""
+    import torch
+
+    n = ds.num_draws
+    anim_n = max(n // 50, 1)
+    static_n = n - anim_n
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    sf = sunmap.fit_sun_to_draws(sp.sun_direction, draws, device=dev)
+    texel = sunmap.map_texel_world(sf, SUN_MAP, SUN_MAP)
+    # bench.py:165-173: the frame's budgets, triangles capped at 2^19 so the
+    # (tile, tri) key of a 4,096-tile map fits in 32 bits
+    sun_caps = dict(cmd_capacity=cfg.cmd_capacity, cluster_capacity=cfg.cluster_capacity,
+                    tri_capacity=min(cfg.tri_capacity, 1 << 19), pair_capacity=cfg.pair_capacity)
+    upd_caps = presets.sunmap_update_capacities(anim_n, sun_caps)
+    kw = dict(map_w=SUN_MAP, map_h=SUN_MAP, texel_world=texel)
+
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static, drop = sunmap.build_static_sun_map(ds, sf, batch=SUN_BATCH, num_draws=static_n, **kw, **sun_caps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log("sun build", f"{-(-static_n // SUN_BATCH)} batches of {SUN_BATCH} draws over [0, {static_n}), "
+        f"{SUN_MAP}^2 map, texel {texel:.5f} world units, budgets {sun_caps}: drops {int(drop)}, {secs:.3f} s, "
+        f"covered texels {int((static > 0).sum())}, launches {dict(_build.LAUNCHES)} on {smi}")
+    check(int(drop) == 0, "the static sun map dropped work")
+
+    win = tail_window(sunmap, sf, ds, static_n, SUN_MAP, texel)
+    a, b = win[0] * 8, (win[0] + win[1]) * 8
+    row_above = static[a - 1] if a > 0 else None
+    row_below = static[b] if b < SUN_MAP else None
+    packed_static = sunmap.pack_sun_map(static)
+    _, tail = animate(ds, static_n, 0.3)
+    full, fdrop = sunmap.update_sun_map(tail, sf, static, None, **kw, **upd_caps)
+    band, bdrop = sunmap.update_sun_map(tail, sf, static, None, row_window=win, **kw, **upd_caps)
+    check(int(fdrop) == 0 and int(bdrop) == 0, "the tail's update dropped work")
+    check(torch.equal(band, full[a:b]), "the bench band differs from the full update's rows")
+    spliced = sunmap.pack_band(packed_static, band, a, SUN_MAP, row_above=row_above, row_below=row_below)
+    check(torch.equal(spliced, sunmap.pack_sun_map(full)), "pack_band differs from a full repack")
+    forced, forced_cap = (96, 32), {}
+    fband, fbdrop = sunmap.update_sun_map(tail, sf, static, None, row_window=forced, capture=forced_cap, **kw,
+                                          **upd_caps)
+    check(torch.equal(fband, full[forced[0] * 8:(forced[0] + forced[1]) * 8]),
+          "the forced band differs from the full update's rows")
+    log("sun window", f"{anim_n} animated draws [{static_n}, {n}), update budgets {upd_caps}: bench window tile rows "
+        f"{win[0]}..{win[0] + win[1]} of {SUN_MAP // 8} = (row0, n_rows) {win}; its band equals the full update's "
+        f"rows and pack_band equals pack_sun_map of the full update, bit for bit; forced band {forced}: rows equal "
+        f"bit for bit, {int(forced_cap['pairs'])} pairs in it, drops {int(fbdrop)} (drop_vec "
+        f"{forced_cap['drop_vec'].tolist()}: the tail's pairs outside the band, reported)")
+
+    def update(t, capture=None):
+        """Move the tail, update its band of the map, splice the band."""
+        moved, tail_t = animate(ds, static_n, t)
+        band_t, udrop = sunmap.update_sun_map(tail_t, sf, static, None, row_window=win, capture=capture, **kw,
+                                              **upd_caps)
+        return moved, sunmap.pack_band(packed_static, band_t, a, SUN_MAP, row_above=row_above, row_below=row_below), udrop
+
+    def step(state, t, capture=None, upd_capture=None, events=None):
+        moved, packed_t, udrop = update(t, upd_capture)
+        if events:
+            events[1].record()
+        out = frame.render_frame(moved, state, params, sp, cfg, textures=tex, sun=(sf, packed_t, (SUN_MAP, SUN_MAP)),
+                                 capture=capture)
+        return out, udrop
+
+    state = frame.init_state(n, ds.meshlet_visibility_count, dev)
+    for i in range(2):
+        (_, _, state, stats), udrop = step(state, 0.3 * (i + 1))
+        log("sun warmup", f"frame {i}: {frame_line(stats.to_dict())} sun update drops {int(udrop)}")
+    torch.cuda.synchronize()
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    upd_ms, frame_ms = [], []
+    for i in range(2, 5):
+        cap, upd = {}, {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        (image, fb, state, stats), udrop = step(state, 0.3 * (i + 1), capture=cap, upd_capture=upd, events=ev)
+        ev[2].record()
+        torch.cuda.synchronize()
+        upd_ms.append(ev[0].elapsed_time(ev[1]))
+        frame_ms.append(ev[0].elapsed_time(ev[2]))
+        s = stats.to_dict()
+        covered = fb.vis != INVALID
+        term = cap["shadow"][covered]
+        shaded = float((term < 1.0).sum() / term.numel())
+        log("sun main", f"frame {i}: update+splice {upd_ms[-1]:.3f} ms, animated frame {frame_ms[-1]:.3f} ms | "
+            f"{frame_line(s)} covered_px {int(covered.sum())} shadowed share {shaded:.4f} (term < 0.5: "
+            f"{float((term < 0.5).sum() / term.numel()):.4f}, mean term {float(term.mean()):.4f}) | sun update: "
+            f"{int(upd['draws'])} commands, {int(upd['clusters'])} clusters, {int(upd['tris'])} tris, "
+            f"{int(upd['pairs'])} pairs, drops {int(udrop)} {upd['drop_vec'].tolist()}")
+        check(all(int(s[k]) == 0 for k in DROPS) and not s["pair_drop_vec"].any(), f"frame {i} dropped work")
+        check(int(udrop) == 0, f"frame {i}: the sun update dropped work")
+        check(tuple(image.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(image).all()),
+              "image not finite")
+        check(shaded > 0.0, "no covered pixel is in shadow")
+    launches = dict(_build.LAUNCHES)
+    expected = {"setup": 0, "setup_alpha": 6, "raster": 3, "raster_alpha": 3, "raster_window": 0,
+                "raster_alpha_window": 3, "shade": 3}
+    log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
+        f"{frame_ms} on {smi}")
+    check(launches == expected, "kernel launch counts")
+    return dict(update=upd, forced=forced_cap, launches=launches, state=state, step=step, update_step=update)
+
+
+def compare_window(tag, sun, raster_tile) -> dict:
+    """The window variant, both instances, on the steady frame's band and on
+    the forced band, each with a tie merge, against raster_plain (exact);
+    time, plain time and bound of the path's instance on the steady band."""
+    import torch
+
+    tiles_x = SUN_MAP // 128
+    row = None
+    for label, cap in (("steady frame 4 band", sun["update"]), ("forced band", sun["forced"])):
+        ts, pt, rec, off, d0, v0 = cap["raster"]
+        row0 = cap["band_row0"]
+        for alpha in (True, False):
+            name = "raster_alpha_window" if alpha else "raster_window"
+            args = (ts, pt, rec, off, d0, v0, tiles_x)
+            shifted = raster_tile.raster_cuda(ts, pt, rec, off + rec.shape[0], d0, v0, tiles_x, alpha_test=alpha,
+                                              band_row0=row0)
+            results = []
+            for case, a in (("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))):
+                kd, kv = raster_tile.raster_cuda(*a, alpha_test=alpha, band_row0=row0)
+                pd, pv = raster_tile.raster_plain(*a, alpha_test=alpha, band_row0=row0)
+                check(torch.equal(kv, pv) and torch.equal(kd, pd), f"{label} {name}{case}: differs from raster_plain")
+                results.append(kv)
+            check(torch.equal(results[0], results[1]), f"{label} {name}: the tie merge must give the band's result")
+            changed = int((results[0] != v0).sum())
+            log(tag, f"{label} {name}: band rows {row0 * 8}..{row0 * 8 + d0.shape[0]}, {int(ts[-1])} pairs, "
+                f"{changed} px written, depth and vis equal to raster_plain (tie merge too), max_abs_err 0.0")
+            if alpha and row is None:
+                ms = cuda_ms(lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0), 20)
+                pms = cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=True, band_row0=row0), 2)
+                nbytes, ops = raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
+                bms, by = bound(nbytes, ops)
+                log(tag, f"{label} {name}: kernel {ms:.4f} ms vs plain {pms:.4f} ms per launch (1 launch per "
+                    f"frame), bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+                row = dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/raster.cu",
+                           replaces="niagara_tpu/ops/raster_tile.py:393", max_abs_err=0.0, ms=ms, plain_ms=pms,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+    return row
+
+
+def profile_frames(tag, step, state, n: int = 5) -> None:
+    """torch.profiler over n chained frames, `step(state, i)` rendering
+    frame i and returning the next state: device ops and kernel launches
     per frame, device busy time (union of device op intervals) and idle
     share of the host wall time, and the costliest device ops."""
     import torch
@@ -494,8 +774,8 @@ def profile_frames(tag, ds, tex, state, params, sp, cfg, frame, n: int = 5) -> N
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            _, _, state, _ = frame.render_frame(ds, state, params, sp, cfg, textures=tex)
+        for i in range(n):
+            state = step(state, i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()

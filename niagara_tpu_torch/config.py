@@ -3,6 +3,7 @@
 # meshlet geometry budget (reference config.h:14-15)
 MESH_MAXVTX = 64  # max vertices per meshlet
 MESH_MAXTRI = 96  # max triangles per meshlet
+TASK_WGSIZE = 64  # meshlets per task command of the sun map's command builder
 
 # LOD slots per mesh (the reference's 8, extended to 16)
 MAX_LODS = 16

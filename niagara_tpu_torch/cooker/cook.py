@@ -115,13 +115,14 @@ def assemble(meshes_cooked: list[dict]) -> Geometry:
     )
 
 
-def cook_obj_meshes(paths: list[str]) -> Geometry:
-    """Cook one mesh per OBJ file, with its LOD chain (cook.py:138)."""
+def cook_obj_meshes(paths: list[str], build_lods: bool = True) -> Geometry:
+    """Cook one mesh per OBJ file, with its LOD chain unless `build_lods`
+    is false (cook.py:138)."""
     cooked = []
     for path in paths:
         flat = bindings.load_obj(path)
         indices = np.arange(len(flat), dtype=np.uint32)
-        cooked.append(bindings.cook_mesh(flat, indices))
+        cooked.append(bindings.cook_mesh(flat, indices, build_lods=build_lods))
     return assemble(cooked)
 
 

@@ -1,10 +1,16 @@
 // Tile rasterizer for Hopper: visibility buffer resolve over tile-sorted pairs.
 //
 // Replaces niagara_tpu/ops/raster_tile.py::_raster_kernel, entered through
-// rasterize_tiles, in two static variants (the template flag kAlpha): opaque
-// (alpha_test=False) and alpha_test (raster_tile.py:440-468), which the merged
-// late stream of an alpha-classed frame runs.  The row_window variant (sun-map
-// bands) is not ported yet.  Plain torch twin: ops/raster_tile.py::raster_plain.
+// rasterize_tiles, in all its variants.  Two are static (the template flag
+// kAlpha): opaque (alpha_test=False) and alpha_test (raster_tile.py:440-468),
+// which the merged late stream of an alpha-classed frame and every sun-map
+// raster of a scene with masks run.  The row_window variant (raster_tile.py:393,
+// the sun map's dirty-band update) is the runtime argument band_row0 of both:
+// the framebuffer is a band of tile rows whose first row is full-grid tile row
+// band_row0, coverage is tested at full-grid pixel rows and the result stored
+// at the band's own rows, so a band equals the matching rows of a full render;
+// a launch on a whole framebuffer passes 0.  Plain torch twin:
+// ops/raster_tile.py::raster_plain.
 //
 // One block per 8x128-pixel tile, 256 threads, each owning 4 pixels of one
 // column.  The block walks its tile's pair range [tile_start[t],
@@ -34,7 +40,9 @@
 // and nothing clips to the triangle's box -- although at the headline a
 // triangle's box holds a few dozen of those pixels: most of the tests are
 // work the inputs do not need, which is why the kernel sits far above its
-// bound.
+// bound.  On a 2048-wide sun map the carried and written depth/vis are 16
+// bytes a pixel over a band that few triangles touch: the bound there is
+// bytes, and the kernel launches one block per band tile, empty or not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,14 +90,15 @@ __device__ __forceinline__ bool mask_bit(const float* k, float e0, float e1, flo
 template <bool kAlpha>
 __global__ void raster_tile(const int* tile_start, const int* pair_tri, const float* rec, int frag_off,
                             const float* depth_in, const int* vis_in, float* depth_out, int* vis_out,
-                            int width, int tiles_x) {
+                            int width, int tiles_x, int band_row0) {
   constexpr int kCoef = kAlpha ? 27 : 13;
   __shared__ float coef[kBatch][kCoef];
   const int t = blockIdx.x;
   const int col = threadIdx.x % kTileW;
-  const int row0 = (threadIdx.x / kTileW) * kRows;
+  const int row0 = (threadIdx.x / kTileW) * kRows;  // the thread's first row inside the tile
   const int px = (t % tiles_x) * kTileW + col;
-  const int py0 = (t / tiles_x) * kTileH + row0;
+  const int py0 = (t / tiles_x) * kTileH + row0;  // band-local row: where depth/vis live
+  const int gy0 = py0 + band_row0 * kTileH;       // full-grid row: where coverage is tested
   const float fx = (float)px + 0.5f;
   float zbest[kRows];
   int ibest[kRows];
@@ -114,7 +123,7 @@ __global__ void raster_tile(const int* tile_start, const int* pair_tri, const fl
       const bool tl2 = k[6] > 0.0f || (k[6] == 0.0f && k[7] > 0.0f);
       const int id = (int)k[kId] + frag_off;
       for (int j = 0; j < kRows; ++j) {
-        const float fy = (float)(py0 + j) + 0.5f;
+        const float fy = (float)(gy0 + j) + 0.5f;
         const float e0 = k[0] * fx + k[1] * fy + k[2];
         const float e1 = k[3] * fx + k[4] * fy + k[5];
         const float e2 = k[6] * fx + k[7] * fy + k[8];
@@ -144,15 +153,18 @@ __global__ void raster_tile(const int* tile_start, const int* pair_tri, const fl
 
 }  // namespace
 
-// alpha_test != 0 launches the alpha_test variant, else the opaque one.
+// alpha_test != 0 launches the alpha_test variant, else the opaque one;
+// band_row0 is the full-grid tile row of the framebuffer's first row (0 for
+// a whole framebuffer).
 extern "C" int raster_launch(const int* tile_start, const int* pair_tri, const float* rec, int frag_off,
                              const float* depth_in, const int* vis_in, float* depth_out, int* vis_out,
-                             int width, int tiles_x, int n_tiles, int alpha_test, cudaStream_t stream) {
+                             int width, int tiles_x, int n_tiles, int band_row0, int alpha_test,
+                             cudaStream_t stream) {
   if (alpha_test)
     raster_tile<true><<<n_tiles, kThreads, 0, stream>>>(tile_start, pair_tri, rec, frag_off, depth_in, vis_in,
-                                                        depth_out, vis_out, width, tiles_x);
+                                                        depth_out, vis_out, width, tiles_x, band_row0);
   else
     raster_tile<false><<<n_tiles, kThreads, 0, stream>>>(tile_start, pair_tri, rec, frag_off, depth_in, vis_in,
-                                                         depth_out, vis_out, width, tiles_x);
+                                                         depth_out, vis_out, width, tiles_x, band_row0);
   return (int)cudaGetLastError();
 }

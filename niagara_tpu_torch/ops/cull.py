@@ -6,7 +6,8 @@ the late pass's merged multi-class form (`num_classes`);
 flat cluster list, culls every cluster with the two-pass visibility-bit
 protocol and the late pass's visibility-word write-back, and partitions
 the survivors into class groups; `cluster_cull_direct` (:367) is its
-single-class form.
+single-class form.  `build_task_commands` (:158) is the legacy command
+builder (64-meshlet task commands), which only the sun map still uses.
 
 Visibility words are u32 values held in int64 (PyTorch's uint32 has few
 ops); compacted lists keep the reference's prefix order.
@@ -19,7 +20,64 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import TASK_WGSIZE
 from . import compact, cullmath
+
+
+@dataclass
+class TaskCommands:
+    """Fixed-capacity task command buffer (cull.py:60); [capacity] int64
+    fields, slots past `count` have task_count 0."""
+
+    draw_id: torch.Tensor
+    task_offset: torch.Tensor  # meshlet index of lane 0
+    task_count: torch.Tensor  # live lanes (<= TASK_WGSIZE)
+    late_draw_visibility: torch.Tensor
+    vis_offset: torch.Tensor  # meshlet-visibility slot of lane 0
+    count: torch.Tensor  # 0-d: live commands
+    dropped: torch.Tensor  # 0-d: draws dropped whole on overflow
+
+
+def build_task_commands(scene, emit, lod_index, draw_vis, *, capacity: int) -> TaskCommands:
+    """Each emitted draw appends ceil(meshlets / 64) commands in draw-id
+    order; a draw whose commands do not fit drops whole (cull.py:158-240,
+    every field equal).  The slot of a draw is its prefix-sum position,
+    and each command finds its owning draw by a cumulative max over the
+    marks at the draws' first slots (cull.py:211-221)."""
+    dev = emit.device
+    pos = torch.arange(capacity, device=dev)
+    e_draw, n_draws, over = compact.compact_mask_indices(emit, capacity)
+    live_d = pos < n_draws
+    e_lod = torch.clamp(lod_index[e_draw], 0, 15) * live_d
+    e_vis = ((draw_vis[e_draw] != 0) & live_d).to(torch.int64)
+    e_visoff = scene.draw_vis_offset[e_draw].to(torch.int64)
+    meshlet_count = scene.draw_lod_meshlet_count[e_draw].gather(1, e_lod[:, None])[:, 0].to(torch.int64) * live_d
+    meshlet_offset = scene.draw_lod_meshlet_offset[e_draw].gather(1, e_lod[:, None])[:, 0].to(torch.int64)
+
+    groups = torch.where(live_d, (meshlet_count + TASK_WGSIZE - 1) // TASK_WGSIZE, 0)
+    base = compact.exclusive_cumsum(groups)
+    fits = base + groups <= capacity
+    dropped = over + (live_d & ~fits).sum()
+    groups = torch.where(fits, groups, 0)
+
+    slot1 = torch.where(groups > 0, base, capacity)
+    marks = compact.scatter_drop(torch.zeros(capacity, dtype=torch.int64, device=dev), slot1, pos + 1)
+    start = torch.cummax(torch.where(marks > 0, pos, -1), 0).values
+    started = start >= 0
+    sp = torch.clamp_min(start, 0)
+    ci = torch.where(started, marks[sp] - 1, 0)  # compacted draw index
+    cg = torch.where(started, pos - sp, 0)  # command index within the draw
+    c_count = torch.clamp(meshlet_count[ci] - cg * TASK_WGSIZE, 0, TASK_WGSIZE)
+    live = started & (c_count > 0)
+    return TaskCommands(
+        draw_id=e_draw[ci],
+        task_offset=meshlet_offset[ci] + cg * TASK_WGSIZE,
+        task_count=torch.where(live, c_count, 0),
+        late_draw_visibility=e_vis[ci] * live,
+        vis_offset=e_visoff[ci] + cg * TASK_WGSIZE,
+        count=groups.sum(),
+        dropped=dropped,
+    )
 
 
 @dataclass

@@ -17,6 +17,12 @@ def rdiv(x: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, x) / t
 
 
+def div(t: torch.Tensor, x: float) -> torch.Tensor:
+    """t / x as one IEEE division on every device: on a CUDA tensor, torch's
+    `tensor / float` multiplies by the reciprocal (two roundings)."""
+    return t / torch.full_like(t, x)
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]

@@ -4,8 +4,9 @@
   reference's footprint classes, class capacities and drop/demand
   counters.  Plain torch, as the reference computes it outside Pallas.
 * `rasterize_tiles` (:519) -- pair emission + the tile raster kernel
-  (csrc/raster.cu, replacing the Pallas `_raster_kernel` in its opaque and
-  `alpha_test` variants); `raster_plain` is its plain torch version.
+  (csrc/raster.cu, replacing the Pallas `_raster_kernel` in its opaque,
+  `alpha_test` and `row_window` variants); `raster_plain` is its plain
+  torch version.
 * `shade_tiles` (:918) -- per-pixel attribute interpolation over the
   visibility buffer (csrc/shade.cu, replacing the Pallas `_shade_kernel`);
   `shade_plain` is its plain torch version.
@@ -37,11 +38,17 @@ ATTR_CHANNELS = 13  # nx ny nz u v viewz draw mat post vid0 vid1 vid2 duv
 def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
                mid_capacity: int | None = None, small_capacity: int | None = None,
                midb_capacity: int | None = None, giant_capacity: int = 64,
-               tiny2_capacity: int | None = None) -> dict:
+               tiny2_capacity: int | None = None, row_window: tuple[int, int] | None = None) -> dict:
     """Tile-sorted (tile, tri) pairs.  Returns dict(pair_tri [P], tile_start
     [n_tiles+1], pair_count, dropped, drop_vec [6] -- class overflow per
     (tiny2, small, midA, midB, giant, sort truncation) --, demand_vec [6]
-    -- live triangles per (tiny1, tiny2, small, midA, midB, giant))."""
+    -- live triangles per (tiny1, tiny2, small, midA, midB, giant)).
+
+    `row_window=(row0, n_rows)` keeps the pairs of the tile rows [row0,
+    row0 + n_rows) of the tiles_x x tiles_y grid, numbered from the band's
+    first tile (raster_tile.py:109-116, 233-242).  Emission runs on the
+    full grid (footprint classes and the u32 key check see the whole map);
+    live pairs outside the band count in drop_vec[5]."""
     n_tiles = tiles_x * tiles_y
     valid = setup["valid"]
     T = valid.shape[0]
@@ -107,11 +114,20 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
     tiles_all = torch.cat([tile_1, tile_2.reshape(-1), tile_s, tile_a, tile_b, tile_g])
     tris_all = torch.cat([tri_idx, tri_2.reshape(-1), tri_s, tri_a, tri_b, tri_g])
 
+    out_of_window = 0
+    if row_window is not None:
+        base, band = row_window[0] * tiles_x, row_window[1] * tiles_x
+        live_full = tiles_all < n_tiles
+        in_band = live_full & (tiles_all >= base) & (tiles_all < base + band)
+        out_of_window = (live_full & ~in_band).sum()
+        tiles_all = torch.where(in_band, tiles_all - base, band)
+        n_tiles = band
+
     # u32 keys (tile << tri_bits | tri) in int64; dead pairs (tile n_tiles)
     # sort to the end; the key order is total, so the result is unique
     packed = torch.sort((tiles_all << tri_bits) | tris_all).values[:pair_capacity]
     pair_count = (tiles_all < n_tiles).sum()
-    trunc = torch.clamp_min(pair_count - pair_capacity, 0)
+    trunc = torch.clamp_min(pair_count - pair_capacity, 0) + out_of_window
     drop_vec = torch.stack([over2, over_s, over_a, over_b, over_g, trunc])
     demand_vec = torch.stack([m.sum() for m in (is_tiny1, is_tiny2, is_small, is_mida, is_midb, is_giant)])
     bounds = torch.arange(n_tiles + 1, device=dev) << tri_bits
@@ -126,26 +142,34 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
 
 
 def rasterize_tiles(setup: dict, depth, vis, *, tiles_x: int, tiles_y: int, pair_capacity: int,
-                    frag_offset: int = 0, class_caps: tuple | None = None, alpha_test: bool = False):
+                    frag_offset: int = 0, class_caps: tuple | None = None, alpha_test: bool = False,
+                    row_window: tuple[int, int] | None = None):
     """Rasterize set-up triangles onto depth/vis [H, W].  `class_caps` =
     (tiny2, small, midA, midB) pair-class budgets or None for emit_pairs'
     defaults; `alpha_test` runs the kernel's alpha variant (records with an
     opacity mask, cols 48-55, discard the pixels of clear mask cells).
+    `row_window=(row0, n_rows)` renders only those tile rows of the
+    tiles_x x tiles_y grid (raster_tile.py:519-547): depth/vis are then the
+    band's [n_rows * 8, W] rows, and coverage is computed at full-grid
+    pixel rows, so the band equals the matching rows of a full render.
     Returns (depth, vis, stats) with stats = emit_pairs' counters +
     `stream`, the record stream `shade_tiles` resolves attributes from."""
     cc = dict(zip(("tiny2_capacity", "small_capacity", "mid_capacity", "midb_capacity"), class_caps or ()))
-    pairs = emit_pairs(setup, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=pair_capacity, **cc)
+    pairs = emit_pairs(setup, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=pair_capacity, row_window=row_window,
+                       **cc)
     args = (pairs["tile_start"], pairs["pair_tri"], setup["rec"], frag_offset, depth, vis, tiles_x)
     raster = raster_plain if depth.device.type == "cpu" else raster_cuda
-    depth, vis = raster(*args, alpha_test=alpha_test)
+    depth, vis = raster(*args, alpha_test=alpha_test, band_row0=row_window[0] if row_window else None)
     stream = dict(rec=setup["rec"], frag_off=frag_offset, count=setup["count"])
     return depth, vis, dict(pairs, stream=stream)
 
 
-def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False):
+def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False, band_row0=None):
     """The tile raster kernel (csrc/raster.cu), its alpha_test variant on
-    request: raster_plain's contract."""
-    name = "raster_alpha" if alpha_test else "raster"
+    request: raster_plain's contract.  A launch given a band start (the
+    row_window variant, even a band from row 0) counts under its own name,
+    `raster_window` / `raster_alpha_window`."""
+    name = ("raster_alpha" if alpha_test else "raster") + ("" if band_row0 is None else "_window")
     _build.require_cuda(depth, name)
     H, W = depth.shape
     _build.expect(depth, torch.float32, (H, W), "raster depth")
@@ -162,7 +186,7 @@ def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alp
     n_tiles = ts.shape[0] - 1
     rc = lib.raster_launch(ts.data_ptr(), pt.data_ptr(), rec.data_ptr(), int(frag_offset),
                            depth_in.data_ptr(), vis_in.data_ptr(), depth_out.data_ptr(), vis_out.data_ptr(),
-                           W, tiles_x, n_tiles, int(alpha_test), _build.stream_ptr(depth))
+                           W, tiles_x, n_tiles, int(band_row0 or 0), int(alpha_test), _build.stream_ptr(depth))
     _build.LAUNCHES[name] += 1
     _build.check(rc, name)
     return depth_out, vis_out
@@ -197,18 +221,22 @@ def _alpha_pass(r, e0, e1, e2):
     return (c(54) <= 0.0) | (mask_bit_float(half, bb) > 0.5)
 
 
-def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False):
+def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False, band_row0=None):
     """Plain torch tile raster: every pair's record evaluated over its
     tile's 1024 pixel centers; per pixel the max reverse-Z covered depth
     wins, ties to the smallest fragment id, merged with the carried
     depth/vis under the same rule (raster_tile.py:416-492); `alpha_test`
-    adds the opacity-mask test of masked records."""
+    adds the opacity-mask test of masked records.  With `band_row0` the
+    framebuffer is a band of tile rows starting at that full-grid row:
+    coverage is tested at full-grid pixel rows (raster_tile.py:393), the
+    result stored at the band's own rows."""
     H, W = depth.shape
     dev = depth.device
     n_tiles = tile_start.shape[0] - 1
     chunk = 1 << (16 if dev.type == "cuda" else 12)  # pairs per [chunk, 1024] evaluation
     lane = torch.arange(TILE_H * TILE_W, device=dev)
     ly, lx = lane // TILE_W, lane % TILE_W
+    oy = (band_row0 or 0) * TILE_H
     # best (depth, -id) per pixel packed in one int64: f32 bits of a
     # positive depth order like the depth, so amax resolves both at once
     best = torch.zeros(H * W, dtype=torch.int64, device=dev)
@@ -220,7 +248,7 @@ def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, al
         r = rec[pair_tri[p]] if alpha_test else rec[pair_tri[p]][:, :16]
         px = (t % tiles_x)[:, None] * TILE_W + lx
         py = (t // tiles_x)[:, None] * TILE_H + ly
-        fx, fy = px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5
+        fx, fy = px.to(torch.float32) + 0.5, (py + oy).to(torch.float32) + 0.5
         cover = live[:, None]
         edges = []
         for k in (0, 3, 6):

@@ -2,10 +2,10 @@
 `gbuffer_from_attrs` (:260) with its material fetch (`_mat_rows` :159,
 here one gather), texture sampling (`_sample_materials` :173,
 albedo/specular/emissive slots) and the shade-time alpha discard
-(:319); `_lit_color` (:378) and `composite` (:420) without shadow,
-bloom or transmission.  Normal maps
-(slot 1, the screen-space tangent frame) are not ported: a scene whose
-materials carry one raises.
+(:319); `_lit_color` (:378) and `composite` (:420) with the sun-map
+shadow term (:415-416, 444).  Not ported yet: bloom and the transmission
+layer.  Normal maps (slot 1, the screen-space tangent frame) are not
+ported: a scene whose materials carry one raises.
 """
 
 from __future__ import annotations
@@ -79,8 +79,9 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
 
 
 def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_projection,
-               width: int, height: int):
-    """Sun N.L + Blinn-Phong + ambient + emissive, unshadowed (shade.py:378)."""
+               width: int, height: int, shadow_term=None):
+    """Sun N.L + Blinn-Phong + ambient + emissive (shade.py:378), the sun
+    terms scaled by `shadow_term` [H, W] (None: unshadowed)."""
     dev = depth.device
     albedo = cullmath.from_srgb(g0[..., :3])
     emissive = albedo * (torch.exp2(g0[..., 3] * 5.0) - 1.0)[..., None]
@@ -107,16 +108,22 @@ def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_pr
     specular = torch.pow(torch.clamp_min(ndoth, 1e-6), 1.0 + 63.0 * gloss) * gloss
 
     ambient, shadow_ambient, sun_intensity = 0.07, 0.05, 2.5
-    color = albedo * (ndotl * min(1.0 + shadow_ambient, 1.0) * sun_intensity + ambient)[..., None]
+    if shadow_term is None:  # a term of 1: min(1 + shadow_ambient, 1) = 1
+        lit, specular = ndotl, specular
+    else:
+        lit, specular = ndotl * torch.clamp_max(shadow_term + shadow_ambient, 1.0), specular * shadow_term
+    color = albedo * (lit * sun_intensity + ambient)[..., None]
     color = color + specular[..., None] * sun_intensity
     return color + emissive
 
 
 def composite(g0, g1, depth, valid, *, camera_position, sun_direction, inverse_view_projection,
-              width: int, height: int):
-    """G-buffer -> tonemapped, debanded image [H,W,3] (shade.py:420)."""
+              width: int, height: int, shadow=None):
+    """G-buffer -> tonemapped, debanded image [H,W,3] (shade.py:420);
+    `shadow` is the sun's shadow term [H, W] or None (unshadowed)."""
     color = _lit_color(g0, g1, depth, camera_position=camera_position, sun_direction=sun_direction,
-                       inverse_view_projection=inverse_view_projection, width=width, height=height)
+                       inverse_view_projection=inverse_view_projection, width=width, height=height,
+                       shadow_term=shadow)
     color = torch.where(valid[..., None], color, 0.0)
     dev = depth.device
     xy = torch.stack([

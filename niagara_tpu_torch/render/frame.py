@@ -12,8 +12,10 @@ alpha-test class (postPass 1), which the late pass culls together with
 class 0 and rasterizes in one merged stream through the raster kernel's
 alpha_test variant (class group (0, 1), frame.py:135-143, 367-429); a scene
 with opacity masks runs the setup kernel's alpha variant.  `render_frame`
-samples textures when given a table.  Not ported yet: bloom, shadows and
-the transmission layer (post_passes=3).  Fragment ids: early records are
+samples textures when given a table, and with `FrameConfig.shadows` and a
+sun map (`sun`, ops/sunmap.py) resolves and blurs the sun's shadow term.
+Not ported yet: bloom, the transmission layer (post_passes=3) and the
+ray-traced (BVH) shadows.  Fragment ids: early records are
 [0, tri_capacity), late records tri_capacity + [0, late_tri_capacity)
 (frame.py:389).
 """
@@ -28,7 +30,7 @@ import torch
 from ..config import TILE_H, TILE_W
 from ..utils import math3d
 
-from ..ops import cull, pyramid, raster, raster_tile, setup, shade
+from ..ops import cull, pyramid, raster, raster_tile, setup, shade, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
 from .camera import Camera, RenderSettings, make_cull_params
 
@@ -61,6 +63,10 @@ class FrameConfig:
     pair_class_caps: tuple | None = None
     # draw classes: 1 = opaque only; 2 adds the alpha-test class
     post_passes: int = 1
+    # sun-map shadows (render_frame's `sun`), blurred by the depth-aware
+    # bilateral filter
+    shadows: bool = False
+    shadow_blur: bool = True
 
     def __post_init__(self):
         if self.post_passes not in (1, 2):
@@ -170,7 +176,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     """Cull + raster + attribute resolve for one frame.  Returns (fb,
     new_state, stats, attrs [H,W,13]).  A `capture` dict receives the
     inputs of every kernel call (chip_smoke.py replays them against the
-    plain versions)."""
+    plain versions) and the two passes' setup outputs ("setup_out")."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
     dev = state.draw_vis.device
     levels, ph, pw = cfg.pyramid_levels_shape
@@ -208,6 +214,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     if capture is not None:
         capture.update(
             setup=[(tc_e, cfg.tri_capacity), (tc_l, cfg.late_tri_cap)],
+            setup_out=[st_e, st_l],
             raster=[(rst["tile_start"], rst["pair_tri"], st["rec"], off, *carry)
                     for rst, st, off, carry in ((rst_e, st_e, 0, carry_e),
                                                 (rst_l, st_l, cfg.tri_capacity, carry_l))],
@@ -235,16 +242,31 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
 
 
 def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cfg: FrameConfig,
-                 textures=None, capture: dict | None = None):
+                 textures=None, sun=None, capture: dict | None = None):
     """Render one frame; `textures` (render.textures.TextureTable on the
-    scene's device) textures the materials.  Returns (image [H,W,3], fb,
+    scene's device) textures the materials.  With `cfg.shadows`, `sun` =
+    (sun frame, packed map, (map_h, map_w)) -- ops/sunmap.fit_sun_to_draws,
+    pack_sun_map or pack_band -- shadows the sun light through the packed
+    resolve at half resolution (frame.py:647-663, where the 3-tuple rides
+    in `bvh`); without a map the frame is unshadowed, as the reference's.
+    `capture` receives frame_core's kernel inputs and the shadow term
+    ("shadow", None when unshadowed).  Returns (image [H,W,3], fb,
     new_state, stats)."""
     fb, new_state, stats, attrs = frame_core(scene, state, params, cfg, capture=capture)
     g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures)
+    shadow = None
+    if cfg.shadows and sun is not None:
+        sf, packed, map_shape = sun
+        shadow = sunmap.shadow_map_pass(
+            fb.depth, sf, None, inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width,
+            height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
+    if capture is not None:
+        capture["shadow"] = shadow
     image = shade.composite(
         g0, g1, fb.depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
         inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width, height=cfg.height,
+        shadow=shadow,
     )
     return image, fb, new_state, stats
 

@@ -48,6 +48,34 @@ def headline_capacities(draw_count: int) -> dict:
     return caps
 
 
+# triangle and pair budgets of the sun map's per-frame update of an animated
+# tail.  The reference's 2^18 of each (presets.py:106-110) holds its
+# 20,000-draw tail on the kitten (~132K triangles, ~174K pairs).  The port's
+# torus at the map's texel LOD (its coarsest) gives 14.0 triangles and 19.4
+# pairs a tail draw (400 tail draws of a 20,000-draw alpha scene, CPU run:
+# 5,617-5,622 and 7,736-7,755), ~281K and ~388K for the benchmark's tail:
+# raised to ~1.9x and ~2x that, the triangles at the static build's 2^19
+# (the u32 pair key of a 4,096-tile map).
+SUNMAP_UPDATE_TRI_CAPACITY, SUNMAP_UPDATE_PAIR_CAPACITY = 1 << 19, 3 << 18
+
+
+def sunmap_update_capacities(anim_n: int, sun_caps: dict) -> dict:
+    """Per-frame sun-map update budgets at animated-tail scale
+    (presets.py:90): for a tail of `anim_n` draws, commands ~1.6x and
+    clusters ~3x the tail's draws (powers of two), as the reference; the
+    triangle and pair budgets raised for the torus (above); none above the
+    static build's `sun_caps`."""
+    caps = dict(sun_caps)
+    if anim_n:
+        caps.update(
+            cmd_capacity=max(1 << 12, 1 << (anim_n - 1).bit_length()),
+            cluster_capacity=min(sun_caps["cluster_capacity"], max(1 << 13, 1 << (3 * anim_n // 2 - 1).bit_length())),
+            tri_capacity=min(sun_caps["tri_capacity"], SUNMAP_UPDATE_TRI_CAPACITY),
+            pair_capacity=min(sun_caps["pair_capacity"], SUNMAP_UPDATE_PAIR_CAPACITY),
+        )
+    return caps
+
+
 def small_capacities() -> dict:
     """Budgets of the 256x128 small-scene frame (cooker.small_scene_draws),
     sized like tests/test_city.py's reduced frame."""

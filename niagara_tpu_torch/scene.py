@@ -8,8 +8,9 @@ masks and texture metadata included; `from_numpy` turns that layout -- or
 the reference's own numpy `DeviceScene` -- into tensors on one device.
 
 Not mirrored: the TPU-only `meshlet_setup_row` (bf16-split channel rows for
-the Pallas setup kernel's DMA) and `meshlet_cull_blocks` (64-meshlet cull
-blocks of the legacy wavefront cull).  The CUDA setup kernel reads
+the Pallas setup kernel's DMA) and `meshlet_cull_blocks` (the f16 64-meshlet
+cull blocks that the sun map's cluster cull reads: ops/sunmap.py rounds
+`meshlet_cull_row` through f16 instead).  The CUDA setup kernel reads
 `meshlet_vdata` in f32 directly.  Vertex-level tables (`positions`,
 `normals`, `uvs`, `tangents`) join with the slices that read them.
 """
@@ -146,6 +147,14 @@ class DeviceScene:
     @property
     def num_meshlets(self) -> int:
         return len(self.meshlet_triangle_count)
+
+    def slice_draws(self, lo: int, hi: int) -> "DeviceScene":
+        """This scene restricted to draw ids [lo, hi) (scene.py:295): every
+        `draw_*` field sliced (views), the mesh, meshlet and material tables
+        shared.  Draw ids inside the slice are local; the sun-map update of
+        an animated tail culls it at [hi - lo] scale."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[lo:hi] for f in dataclasses.fields(self) if f.name.startswith("draw_")})
 
 
 _STATIC_FIELDS = ("meshlet_visibility_count", "has_alpha_masks", "texture_slots", "has_texture_meta")

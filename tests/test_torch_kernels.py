@@ -3,7 +3,8 @@ on the card, on the small scene at 256x128 (cooker.small_scene_draws): setup,
 tile raster and shade must agree exactly, since both sides round every op
 as IEEE f32 (the kernels are built with --fmad=false).  The same for the
 alpha variants of setup and raster on the textured, alpha-classed small
-scene (cooker.small_alpha_scene, post_passes=2).
+scene (cooker.small_alpha_scene, post_passes=2), and for the row_window
+variant of raster (a band of tile rows, both instances).
 
 Marked `cuda`: skipped where there is no GPU.  On a GPU machine run
 `python -m pytest tests/test_torch_kernels.py -m cuda -q`.  These do not
@@ -117,3 +118,24 @@ def test_raster_alpha_kernel_matches_plain(alpha_captured):
     assert torch.equal(*results), "the tie merge gives the pass's result"
     _, opaque = raster_tile.raster_cuda(*capture["raster"][1], tx)
     assert not torch.equal(opaque, results[0]), "the masks discard pixels"
+
+
+def test_raster_window_kernel_matches_plain(alpha_captured):
+    """The raster kernel on a band of tile rows (band_row0 > 0), both
+    instances: equal to raster_plain and to the full raster's rows."""
+    _, _, cfg, capture = alpha_captured
+    tx, ty = cfg.width // 128, cfg.height // 8
+    st = capture["setup_out"][1]
+    _, _, rec, off, d0, v0 = capture["raster"][1]
+    for alpha in (True, False):
+        full = raster_tile.emit_pairs(st, tiles_x=tx, tiles_y=ty, pair_capacity=cfg.late_pair_cap)
+        fd, fv = raster_tile.raster_cuda(full["tile_start"], full["pair_tri"], rec, off, d0, v0, tx, alpha_test=alpha)
+        pairs = raster_tile.emit_pairs(st, tiles_x=tx, tiles_y=ty, pair_capacity=cfg.late_pair_cap, row_window=(5, 6))
+        args = (pairs["tile_start"], pairs["pair_tri"], rec, off, d0[40:88], v0[40:88], tx)
+        name = "raster_alpha_window" if alpha else "raster_window"
+        before = _build.LAUNCHES[name]
+        kd, kv = raster_tile.raster_cuda(*args, alpha_test=alpha, band_row0=5)
+        assert _build.LAUNCHES[name] == before + 1
+        pd, pv = raster_tile.raster_plain(*args, alpha_test=alpha, band_row0=5)
+        assert torch.equal(kv, pv) and torch.equal(kd, pd)
+        assert torch.equal(kv, fv[40:88]) and torch.equal(kd, fd[40:88])
