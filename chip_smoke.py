@@ -2,12 +2,19 @@
 """End-to-end check of the PyTorch/CUDA port (niagara_tpu_torch) on one GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
+`python3 chip_smoke.py --baseline DIR` also builds the kernels of another
+tree of the repository (DIR holds its niagara_tpu_torch/, e.g. an earlier
+commit unpacked by `git archive` into the ignored .cache/) and times its
+setup and raster wrappers against this tree's on the same captured inputs,
+in turns (baseline, this tree, this tree, baseline).
 
 Phases, each reported on its own line:
   device        -- needs CUDA (exits nonzero without it); prints the card's
                    name and power limit as nvidia-smi reports them;
   build         -- nvcc builds csrc/*.cu (one process per source, all at
-                   once) while g++ builds the port's C++ cooker;
+                   once) while g++ builds the port's C++ cooker (and the
+                   baseline tree's kernels, when given); each kernel's
+                   registers, shared memory and spills from ptxas;
   scene         -- the procedural mesh, 1,000,000 draws (the reference's
                    PCG scatter), uploaded to the card;
   small         -- a 256x128 frame of 48 draws through the kernels on the
@@ -23,7 +30,8 @@ Phases, each reported on its own line:
                    the transitional frame 1 and the steady frame 4, each
                    against its plain torch version on the same inputs
                    (exact: both round every op as IEEE f32, the kernels are
-                   built with --fmad=false), both timed with CUDA events;
+                   built with --fmad=false), both timed with CUDA events
+                   (and the baseline's kernels, in turns);
   alpha small   -- the textured, alpha-classed small scene
                    (cooker.small_alpha_scene), two frames, kernels on the
                    card against the plain path on the CPU; its masks must
@@ -75,7 +83,11 @@ Any failed check raises (nonzero exit).
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +127,52 @@ def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi unavailable"
+
+
+def ptxas_resources(log: str) -> list[str]:
+    """One line per kernel entry of an `nvcc -Xptxas=-v` log: registers,
+    shared memory, stack and spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("setup_kernel", "setup_scatter", "setup_count", "setup_scan", "raster_tile",
+                                     "shade_px") if k in mangled), mangled)
+            name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, {smem.group(1) if smem else 0} B smem, "
+                       f"{spill}")
+            name = None
+    return out
+
+
+def load_baseline(path: str):
+    """The _build, ops.setup and ops.raster_tile modules of another tree's
+    niagara_tpu_torch, imported under another package name (its relative
+    imports stay inside it; its kernels build into its own build/)."""
+    pkg = os.path.join(os.path.abspath(path), "niagara_tpu_torch")
+    name = "baseline_niagara_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return tuple(importlib.import_module(f"{name}.{m}") for m in ("_build", "ops.setup", "ops.raster_tile"))
+
+
+def in_turns(new_fn, old_fn, reps: int) -> tuple[float, float | None]:
+    """(ms of new_fn, ms of old_fn or None): old, new, new, old, each the
+    mean over reps launches, each side the mean of its two."""
+    if old_fn is None:
+        return cuda_ms(new_fn, reps), None
+    o1, n1, n2, o2 = cuda_ms(old_fn, reps), cuda_ms(new_fn, reps), cuda_ms(new_fn, reps), cuda_ms(old_fn, reps)
+    return (n1 + n2) / 2, (o1 + o2) / 2
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -178,8 +236,13 @@ def pass_line(capture: dict) -> str:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="End-to-end check of niagara_tpu_torch on one GPU")
+    ap.add_argument("--baseline", help="another tree of the repository whose kernels to time beside this one's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false -- this check needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -193,16 +256,20 @@ def main() -> int:
     log("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    base = load_baseline(opts.baseline) if opts.baseline else None
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(_build.lib), pool.submit(bindings.get_lib)]
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(_build.lib), pool.submit(bindings.get_lib)] + ([pool.submit(base[0].lib)] if base else [])
         for j in jobs:
             j.result()
     log("build", f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_info['seconds']}) -> "
         f"{_build.build_info['path']}, cooker {bindings.lib_path()}")
-    for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower() or "Compiling entry" in line:
-            log("build", line.strip())
+    for line in ptxas_resources(_build.build_info["log"]):
+        log("build", f"ptxas {line}")
+    if base:
+        log("build", f"baseline {opts.baseline}: {base[0].build_info['path']}")
+        for line in ptxas_resources(base[0].build_info["log"]):
+            log("build", f"baseline ptxas {line}")
 
     t0 = time.perf_counter()
     geometry = cooker.cook_procedural()
@@ -220,7 +287,8 @@ def main() -> int:
                 "raster_alpha_window": 0, "shade": 3}
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
-    rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile)
+    rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
+                           base)
     kernels = {r["name"]: dict(r, path="opaque", launches=opaque["launches"][r["name"]]) for r in rows}
     profile_frames("profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], cfg)[2],
                    opaque["state"])
@@ -249,7 +317,8 @@ def main() -> int:
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
-    rows = compare_kernels("alpha ", "steady frame 4", alpha["steady"], ds, alpha["params"], cfg, setup, raster_tile)
+    rows = compare_kernels("alpha ", "steady frame 4", alpha["steady"], ds, alpha["params"], cfg, setup, raster_tile,
+                           base)
     for r in rows:
         if r["name"] in ("setup_alpha", "raster_alpha"):
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
@@ -263,7 +332,7 @@ def main() -> int:
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, shadows=True,
                             **presets.headline_capacities(ds.num_draws))
     sun = run_sun(ds, da, tex, cfg, dev, frame, camera, presets, sunmap, _build, smi)
-    kernels["raster_alpha_window"] = dict(compare_window("sun kernels", sun, raster_tile), path="sun",
+    kernels["raster_alpha_window"] = dict(compare_window("sun kernels", sun, raster_tile, base), path="sun",
                                           launches=sun["launches"]["raster_alpha_window"])
     profile_frames("sun profile", lambda st, i: sun["step"](st, 0.3 * (i + 6))[0][2], sun["state"])
     profile_frames("sun update profile", lambda st, i: sun["update_step"](0.3 * (i + 11))[1], None)
@@ -385,9 +454,10 @@ def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int, band_row0: int 
     the staged columns of each record it references (13, 27 with masks),
     the carried and written depth/vis; RASTER_OPS per (pair, pixel) for
     the pixels of the pair's tile whose centres lie in the triangle's box
-    (no other pixel can be covered; the kernel tests all 1,024) and, with
-    masks, MASK_OPS per covered pixel of a masked record (its screen area
-    from the record's corners, at most its clamped box).  A band of H rows
+    (the setup's box; the kernel's clip box from the edge equations is the
+    same up to rounding) and, with masks, MASK_OPS per covered pixel of a
+    masked record (its screen area from the record's corners, at most its
+    clamped box).  A band of H rows
     sits band_row0 tile rows down the grid_h-row grid its records live in."""
     import torch
 
@@ -430,18 +500,24 @@ def shade_work(streams, vis) -> tuple[float, float]:
     return vis.numel() * 4 + winners * 39 * 4 + vis.numel() * 13 * 4, SHADE_OPS * float(covered.numel())
 
 
-def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) -> list[dict]:
+def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, base=None) -> list[dict]:
     """Each kernel (and variant) of one captured frame vs its plain version
-    on the same inputs; times and bounds are per frame (all passes)."""
+    on the same inputs; times and bounds are per frame (all passes).  With
+    `base` (load_baseline's modules) its setup and raster wrappers are timed
+    in turns with this tree's on the same inputs."""
     import torch
 
     W, H, tiles_x = cfg.width, cfg.height, cfg.width // 128
     rows = {}
+    _, bsetup, braster = base or (None, None, None)
 
-    def add(name, err, ms, pms, work):
-        r = rows.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0))
+    def add(name, err, times, pms, work):
+        r = rows.setdefault(name, dict(err=0.0, ms=0.0, base_ms=0.0 if base else None, plain_ms=0.0, bytes=0.0,
+                                       ops=0.0))
         r["err"] = max(r["err"], err)
-        r["ms"] += ms
+        r["ms"] += times[0]
+        if base:
+            r["base_ms"] += times[1]
         r["plain_ms"] += pms
         r["bytes"] += work[0]
         r["ops"] += work[1]
@@ -453,8 +529,14 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) ->
         err = max_abs_err(k_out, p_out)
         log(f"{tag}kernels", f"{label} {name} {pass_}: {int(tc['count'][0])} clusters -> {int(k_out['count'])} "
             f"triangles ({int(k_out['dropped'])} over capacity), max_abs_err {err} (tolerance 0)")
-        add(name, err, cuda_ms(lambda: setup.setup_cuda(tc, ds, params, W, H, cap), 10),
+        old = (lambda: bsetup.setup_cuda(tc, ds, params, W, H, cap)) if base else None
+        add(name, err, in_turns(lambda: setup.setup_cuda(tc, ds, params, W, H, cap), old, 10),
             cuda_ms(lambda: setup.setup_plain(tc, ds, params, W, H, cap), 3), setup_work(tc, k_out, "alpha" in tc))
+        if base:  # what the zeroing of the whole capacity would cost before the launch (the memset design)
+            zero_ms = cuda_ms(lambda: (torch.zeros((cap, 56), device=tc["mi"].device),
+                                       torch.zeros((5, cap), dtype=torch.int32, device=tc["mi"].device)), 10)
+            log(f"{tag}kernels", f"{label} {name} {pass_}: zeroing the whole capacity ({cap} rows) alone takes "
+                f"{zero_ms:.4f} ms")
 
     # the frame's two passes, then a tie merge: the pass's records onto its
     # own result re-rastered at a higher id offset -- every pixel they cover
@@ -497,14 +579,16 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) ->
         log(f"{tag}kernels", f"{label} {name} {pass_}: {int(ts[-1])} pairs, vis equal (tie merge"
             f"{', random masks' if alpha else ''} too), depth max_abs_err {err} (tolerance 0){discard}")
         check(err == 0.0, f"{name} depth differs")
-        add(name, err, cuda_ms(lambda: raster_tile.raster_cuda(*args, alpha_test=alpha), 10),
-            cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=alpha), 2), raster_work(args, alpha, H, W, tiles_x))
+        old = (lambda: braster.raster_cuda(*args, alpha_test=alpha)) if base else None
+        add(name, err, in_turns(lambda: raster_tile.raster_cuda(*args, alpha_test=alpha), old, 10),
+            cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=alpha), 2),
+            raster_work(args, alpha, H, W, tiles_x))
 
     streams, vis = capture["shade"]
     ka = raster_tile.shade_cuda(streams, vis)
     err = max_abs_err(ka, raster_tile.shade_plain(streams, vis))
     log(f"{tag}kernels", f"{label} shade: 2 streams, {int((vis != INVALID).sum())} covered px, max_abs_err {err}")
-    add("shade", err, cuda_ms(lambda: raster_tile.shade_cuda(streams, vis), 20),
+    add("shade", err, (cuda_ms(lambda: raster_tile.shade_cuda(streams, vis), 20), 0.0),
         cuda_ms(lambda: raster_tile.shade_plain(streams, vis), 5), shade_work(streams, vis))
 
     sources = dict(setup=("setup.cu", "niagara_tpu/ops/setup_fused.py:190"),
@@ -516,13 +600,14 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile) ->
     for name, r in rows.items():
         check(r["err"] == 0.0, f"{name} output differs from its plain version")
         bms, by = bound(r["bytes"], r["ops"])
-        log(f"{tag}kernels", f"{label} {name}: kernel {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms per frame, "
-            f"bound {bms:.4f} ms by {by} ({r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop), "
+        was = f" (baseline {r['base_ms']:.4f} ms)" if r["base_ms"] and name != "shade" else ""
+        log(f"{tag}kernels", f"{label} {name}: kernel {r['ms']:.4f} ms{was} vs plain {r['plain_ms']:.4f} ms "
+            f"per frame, bound {bms:.4f} ms by {by} ({r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop), "
             f"max_abs_err {r['err']}")
         src, rep = sources[name]
         out.append(dict(name=name, route="cuda", source=f"niagara_tpu_torch/csrc/{src}", replaces=rep,
                         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by,
-                        library_ms=None))
+                        library_ms=None, **({"baseline_ms": r["base_ms"]} if was else {})))
     return out
 
 
@@ -723,10 +808,11 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
     return dict(update=upd, forced=forced_cap, launches=launches, state=state, step=step, update_step=update)
 
 
-def compare_window(tag, sun, raster_tile) -> dict:
+def compare_window(tag, sun, raster_tile, base=None) -> dict:
     """The window variant, both instances, on the steady frame's band and on
     the forced band, each with a tie merge, against raster_plain (exact);
-    time, plain time and bound of the path's instance on the steady band."""
+    time, plain time and bound of the path's instance on the steady band
+    (and the baseline's time, in turns, when given)."""
     import torch
 
     tiles_x = SUN_MAP // 128
@@ -750,15 +836,18 @@ def compare_window(tag, sun, raster_tile) -> dict:
             log(tag, f"{label} {name}: band rows {row0 * 8}..{row0 * 8 + d0.shape[0]}, {int(ts[-1])} pairs, "
                 f"{changed} px written, depth and vis equal to raster_plain (tie merge too), max_abs_err 0.0")
             if alpha and row is None:
-                ms = cuda_ms(lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0), 20)
+                old = (lambda: base[2].raster_cuda(*args, alpha_test=True, band_row0=row0)) if base else None
+                new = lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0)  # noqa: E731
+                ms, base_ms = in_turns(new, old, 20)
                 pms = cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=True, band_row0=row0), 2)
                 nbytes, ops = raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
                 bms, by = bound(nbytes, ops)
-                log(tag, f"{label} {name}: kernel {ms:.4f} ms vs plain {pms:.4f} ms per launch (1 launch per "
+                was = f" (baseline {base_ms:.4f} ms)" if base else ""
+                log(tag, f"{label} {name}: kernel {ms:.4f} ms{was} vs plain {pms:.4f} ms per launch (1 launch per "
                     f"frame), bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
                 row = dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/raster.cu",
                            replaces="niagara_tpu/ops/raster_tile.py:393", max_abs_err=0.0, ms=ms, plain_ms=pms,
-                           bound_ms=bms, bound_by=by, library_ms=None)
+                           bound_ms=bms, bound_by=by, library_ms=None, **({"baseline_ms": base_ms} if base else {}))
     return row
 
 

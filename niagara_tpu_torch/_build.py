@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # one count per kernel variant: setup / setup_alpha and raster / raster_alpha
-# are the two static instances of setup.cu's scatter and raster.cu's kernel;
+# are the two static instances of setup.cu's and raster.cu's kernels;
 # raster_window / raster_alpha_window count the same instances launched on a
 # band of tile rows (the row_window variant, the sun map's band update)
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
@@ -59,12 +59,13 @@ class SetupParams(ctypes.Structure):
 
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
-    # (null: no-alpha variant), params, capacity, block_counts, block_offsets, total,
-    # rec, aabb, flat, stream
-    "setup_launch": [P, P, P, P, P, P, P, I, P, P, P, P, SetupParams, I, P, P, P, P, P, P, P],
-    # tile_start, pair_tri, rec, frag_off, depth_in, vis_in, depth_out, vis_out, width, tiles_x,
-    # n_tiles, band_row0, alpha_test, stream
-    "raster_launch": [P, P, P, I, P, P, P, P, I, I, I, I, I, P],
+    # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
+    # counts, stream
+    "setup_launch": [P, P, P, P, P, P, P, I, P, P, P, P, SetupParams, I, P, P, P, P, P, P, P, P],
+    "setup_group": [],
+    # tile_start, tile_order, pair_tri, rec, frag_off, depth_in, vis_in, depth_out, vis_out, width,
+    # tiles_x, n_tiles, band_row0, alpha_test, tile_counter, stream
+    "raster_launch": [P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P],
     # vis, n_px, width, rec0, off0, count0, rec1, off1, count1, attr, stream
     "shade_launch": [P, I, I, P, I, P, P, I, P, P, P],
 }

@@ -2,7 +2,7 @@
 //
 // Replaces niagara_tpu/ops/setup_fused.py::_setup_kernel, entered through
 // setup_compact, in both static variants: no-alpha (_setup_kernel_noalpha)
-// and alpha (_setup_kernel_alpha), the template flag kAlpha of setup_scatter.
+// and alpha (_setup_kernel_alpha), the template flag kAlpha of setup_kernel.
 // The alpha variant copies the triangle's opacity-mask row into record cols
 // 48-55 for clusters of post class > 0 and writes exact zeros for the rest
 // (a select: the mask table is read only for post clusters); the no-alpha
@@ -10,22 +10,38 @@
 // setup_plain, which follows the same op order; with --fmad=false both round
 // op by op, so records agree bit for bit.
 //
-// What bounds it here: per live triangle slot ~250 f32 ops and ~110 bytes of
-// corner reads (three [64,8] f32 vertex rows per cluster, shared by its 96
-// slots and L2-resident), then 224+28 bytes of record out per survivor.  At
-// the headline capacity (65,536 clusters = 6.3M slots) it is latency- and
-// occupancy-bound, not bandwidth-bound.  The TPU kernel's bf16 corner splits,
-// one-hot MXU placement and VMEM windows have no purpose here: one thread per
-// (cluster, triangle) slot reads its corners straight from f32 meshlet_vdata.
+// One pass.  A block takes a group of kGroup whole clusters (kGroup * 96
+// triangle slots, one thread each) by an atomic ticket, so every group
+// before it has started:
+//   1. each of the group's 64-corner meshlets is transformed once into
+//      shared memory (load_corner's op order, so a corner's value does not
+//      depend on the thread that computed it), and the slots read their
+//      three corners from there;
+//   2. each slot is evaluated once; warp ballots rank the survivors inside
+//      the block, and the block publishes its count;
+//   3. the survivors' records are built in shared memory at their ranks
+//      while warp 0 finds the block's output offset by a decoupled
+//      look-back over the earlier groups' published counts and prefixes
+//      (one 32-bit status word per group: 2 flag bits, 30 value bits), so
+//      the output keeps the flat slot order (cluster * 96 + triangle) and
+//      fragment ids (frag_offset + compacted index) without a second pass
+//      or a bare atomic cursor;
+//   4. the block's records, one contiguous range of rows, go out with
+//      16-byte stores; the AABB planes, tri_k/tri_t and `valid` at
+//      consecutive addresses.
+// The grid is persistent: its blocks loop over tickets until the live
+// groups run out, then zero the rows past the final count (the contract:
+// rows past `count` are zero) and write count and dropped once the last
+// live group has published its prefix --
+// so only those rows are written twice, never the whole capacity, and a
+// late pass with one live cluster costs one group and the zeroing.
+// The status words and the ticket are zeroed by the wrapper (n_groups + 1
+// words).
 //
-// Compaction must keep the reference's prefix order (fragment ids are
-// frag_offset + compacted index), so it is three deterministic steps instead
-// of an atomic cursor:
-//   1. setup_count:   per block of 256 slots, the number of valid triangles;
-//   2. setup_scan:    one block scans the block counts -> block offsets + total;
-//   3. setup_scatter: recompute each slot, rank it inside its block with warp
-//                     ballots, write the record at block offset + rank.
-// Slots of clusters at or past the live count cost one compare.
+// What bounds it: per live slot ~250 f32 ops of setup and per meshlet
+// vertex ~60 of transform, against 224 + 20 bytes out per survivor and the
+// zeroed tail; the shared-memory record stage (kGroup * 96 * 224 bytes)
+// limits residency to four blocks of 192 threads an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,8 +51,12 @@ namespace {
 constexpr int kMaxTri = 96;
 constexpr int kMaxVtx = 64;
 constexpr int kRec = 56;
-constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
+constexpr int kGroup = 2;                   // clusters per block iteration
+constexpr int kThreads = kGroup * kMaxTri;  // one thread per triangle slot
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAggregate = 1u << 30;  // status flags: the group's own count ...
+constexpr unsigned kPrefix = 2u << 30;     // ... or its inclusive prefix
+constexpr unsigned kValue = kAggregate - 1u;
 
 }  // namespace
 
@@ -49,10 +69,10 @@ namespace {
 
 struct SetupIn {
   const long long* cluster_count;
-  const int* mi;
+  const long long* mi;
   const int* tri_count;
   const float* xform;  // [K,8] position, scale, quaternion xyzw
-  const int* draw_id;
+  const long long* draw_id;
   const int* mat_index;
   const int* post_pass;
   int K;
@@ -77,7 +97,7 @@ __device__ __forceinline__ void rot_quat(float qx, float qy, float qz, float qw,
   oz = pz + 2.0f * (qx * tyq - qy * txq);
 }
 
-__device__ __forceinline__ Corner load_corner(const SetupIn& in, int m, int li, const float* xf) {
+__device__ __forceinline__ Corner load_corner(const SetupIn& in, long long m, int li, const float* xf) {
   const float* vd = in.vdata + ((size_t)m * kMaxVtx + li) * 8;
   const SetupParams& p = in.p;
   float qx = xf[4], qy = xf[5], qz = xf[6], qw = xf[7];
@@ -114,27 +134,21 @@ __device__ __forceinline__ float finite_or_zero(float x) { return isfinite(x) ? 
 __device__ __forceinline__ float nmin(float a, float b) { return isnan(a) || isnan(b) ? a + b : fminf(a, b); }
 __device__ __forceinline__ float nmax(float a, float b) { return isnan(a) || isnan(b) ? a + b : fmaxf(a, b); }
 
-// Evaluates triangle slot `flat`; returns validity and, when `rec` is given,
-// fills the record (col 13 still holds y0) and the integer AABB.
-__device__ __forceinline__ bool eval_slot(const SetupIn& in, long long live_count, int flat, float* rec,
-                                          int* box) {
-  int k = flat / kMaxTri;
-  int t = flat - k * kMaxTri;
-  if (k >= in.K || k >= live_count || t >= in.tri_count[k]) return false;
-  int m = in.mi[k];
-  const float* xf = in.xform + (size_t)k * 8;
-  const int* tri = in.tris + ((size_t)m * kMaxTri + t) * 3;
-  Corner A = load_corner(in, m, tri[0], xf);
-  Corner B = load_corner(in, m, tri[1], xf);
-  Corner C = load_corner(in, m, tri[2], xf);
-  const float W = in.p.width, H = in.p.height;
+// What a slot's setup yields besides its corners: edges, depth plane, box.
+struct Tri {
+  float e[9], z[3], box[4], sx[3], sy[3];
+};
 
+// Setup of the triangle with corners A, B, C of a cluster of post class
+// `post`; returns validity (raster.compact_setup's tests) and fills `o`.
+__device__ __forceinline__ bool eval_tri(const Corner& A, const Corner& B, const Corner& C, int post,
+                                         const SetupParams& p, Tri& o) {
+  const float W = p.width, H = p.height;
   // negated adjugate rows (Olano-Greer homogeneous edges)
-  float e[9] = {
-      A.w * B.hy - A.hy * B.w, A.hx * B.w - A.w * B.hx, A.hy * B.hx - A.hx * B.hy,  // eAB
-      B.w * C.hy - B.hy * C.w, B.hx * C.w - B.w * C.hx, B.hy * C.hx - B.hx * C.hy,  // eBC
-      C.w * A.hy - C.hy * A.w, C.hx * A.w - C.w * A.hx, C.hy * A.hx - C.hx * A.hy,  // eCA
-  };
+  float* e = o.e;
+  e[0] = A.w * B.hy - A.hy * B.w, e[1] = A.hx * B.w - A.w * B.hx, e[2] = A.hy * B.hx - A.hx * B.hy;  // eAB
+  e[3] = B.w * C.hy - B.hy * C.w, e[4] = B.hx * C.w - B.w * C.hx, e[5] = B.hy * C.hx - B.hx * C.hy;  // eBC
+  e[6] = C.w * A.hy - C.hy * A.w, e[7] = C.hx * A.w - C.w * A.hx, e[8] = C.hy * A.hx - C.hx * A.hy;  // eCA
   float det = A.hx * e[3] + A.hy * e[4] + A.w * e[5];
   bool front = det > 0.0f;
   float inv_det = fabsf(det) < 1e-30f ? 0.0f : 1.0f / det;
@@ -144,7 +158,6 @@ __device__ __forceinline__ bool eval_slot(const SetupIn& in, long long live_coun
   float zc = (ka * e[5] + kb * e[8] + kc * e[2]) * inv_det;
 
   // post classes render double-sided with a reverse-Z depth bias
-  int post = in.post_pass[k];
   bool flip = post > 0 && det < 0.0f;
   float sgn = flip ? -1.0f : 1.0f;
   for (int i = 0; i < 9; ++i) e[i] = e[i] * sgn;
@@ -157,153 +170,217 @@ __device__ __forceinline__ bool eval_slot(const SetupIn& in, long long live_coun
   bool zfin = nmax(nmax(fabsf(za), fabsf(zb)), fabsf(zc)) < 1e30f;
   if (!zfin) za = zb = zc = 0.0f;
   front = front && zfin;
+  o.z[0] = za;
+  o.z[1] = zb;
+  o.z[2] = zc;
 
-  float sx[3], sy[3];
   const Corner* cs[3] = {&A, &B, &C};
   for (int i = 0; i < 3; ++i) {
     float w = cs[i]->w > 1e-9f ? cs[i]->w : 1e-9f;
-    sx[i] = cs[i]->hx / w;
-    sy[i] = cs[i]->hy / w;
+    o.sx[i] = cs[i]->hx / w;
+    o.sy[i] = cs[i]->hy / w;
   }
   bool behind_any = A.w <= 1e-9f || B.w <= 1e-9f || C.w <= 1e-9f;
-  bool all_behind = A.w < in.p.znear && B.w < in.p.znear && C.w < in.p.znear;
-  float x0f = behind_any ? 0.0f : floorf(nmin(nmin(sx[0], sx[1]), sx[2]));
-  float y0f = behind_any ? 0.0f : floorf(nmin(nmin(sy[0], sy[1]), sy[2]));
-  float x1f = behind_any ? W : ceilf(nmax(nmax(sx[0], sx[1]), sx[2]));
-  float y1f = behind_any ? H : ceilf(nmax(nmax(sy[0], sy[1]), sy[2]));
+  bool all_behind = A.w < p.znear && B.w < p.znear && C.w < p.znear;
+  float x0f = behind_any ? 0.0f : floorf(nmin(nmin(o.sx[0], o.sx[1]), o.sx[2]));
+  float y0f = behind_any ? 0.0f : floorf(nmin(nmin(o.sy[0], o.sy[1]), o.sy[2]));
+  float x1f = behind_any ? W : ceilf(nmax(nmax(o.sx[0], o.sx[1]), o.sx[2]));
+  float y1f = behind_any ? H : ceilf(nmax(nmax(o.sy[0], o.sy[1]), o.sy[2]));
   bool on_screen = x1f > 0.0f && y1f > 0.0f && x0f < W && y0f < H;
-  float x0d = nmin(nmax(x0f, 0.0f), W - 1.0f);
-  float y0d = nmin(nmax(y0f, 0.0f), H - 1.0f);
-  float x1d = nmin(nmax(x1f, 0.0f), W);
-  float y1d = nmin(nmax(y1f, 0.0f), H);
-  bool valid = front && !all_behind && on_screen && x1d > x0d && y1d > y0d;
-  if (!valid || rec == nullptr) return valid;
-
-  for (int i = 0; i < 9; ++i) rec[i] = e[i];
-  rec[9] = za;
-  rec[10] = zb;
-  rec[11] = zc;
-  rec[12] = x0d;
-  rec[13] = y0d;
-  rec[14] = x1d;
-  rec[15] = y1d;
-  for (int i = 0; i < 3; ++i) {
-    float* r = rec + 16 + 8 * i;
-    r[0] = sx[i];
-    r[1] = sy[i];
-    r[2] = cs[i]->w;
-    r[3] = cs[i]->nx;
-    r[4] = cs[i]->ny;
-    r[5] = cs[i]->nz;
-    r[6] = cs[i]->u;
-    r[7] = cs[i]->v;
-  }
-  rec[40] = A.vid;
-  rec[41] = B.vid;
-  rec[42] = C.vid;
-  rec[43] = (float)in.draw_id[k];
-  rec[44] = (float)in.mat_index[k];
-  rec[45] = (float)post;
-  rec[46] = (float)flat;
-  for (int i = 0; i < 47; ++i) rec[i] = finite_or_zero(rec[i]);
-  box[0] = (int)rec[12];
-  box[1] = (int)rec[13];
-  box[2] = (int)rec[14];
-  box[3] = (int)rec[15];
-  return true;
+  o.box[0] = nmin(nmax(x0f, 0.0f), W - 1.0f);
+  o.box[1] = nmin(nmax(y0f, 0.0f), H - 1.0f);
+  o.box[2] = nmin(nmax(x1f, 0.0f), W);
+  o.box[3] = nmin(nmax(y1f, 0.0f), H);
+  return front && !all_behind && on_screen && o.box[2] > o.box[0] && o.box[3] > o.box[1];
 }
 
-__global__ void setup_count(SetupIn in, int* block_counts) {
-  __shared__ int warp_counts[kThreads / 32];
-  long long live = *in.cluster_count;
-  int first = blockIdx.x * kThreads;
-  if (first / kMaxTri >= live) {  // whole block past the live clusters
-    if (threadIdx.x == 0) block_counts[blockIdx.x] = 0;
-    return;
+// Exclusive prefix of group vb's survivors: warp-wide decoupled look-back
+// over the status words of the groups before it (called by one full warp).
+__device__ __forceinline__ int look_back(const unsigned* status, int vb, int lane) {
+  int excl = 0;
+  for (int j = vb - 1;;) {
+    const int idx = j - lane;
+    const unsigned s = idx >= 0 ? *(const volatile unsigned*)(status + idx) : kPrefix;
+    const unsigned flag = s >> 30;
+    const unsigned pmask = __ballot_sync(0xffffffffu, flag == 2u);
+    const unsigned need = pmask ? (pmask & (0u - pmask)) * 2u - 1u : 0xffffffffu;  // lanes up to the nearest prefix
+    if (__ballot_sync(0xffffffffu, flag == 0u) & need) continue;  // not published yet: read again
+    int v = (need >> lane) & 1u ? (int)(s & kValue) : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (pmask) return excl;
+    j -= 32;
   }
-  bool valid = eval_slot(in, live, first + threadIdx.x, nullptr, nullptr);
-  unsigned ballot = __ballot_sync(0xffffffffu, valid);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = __popc(ballot);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_counts[w];
-    block_counts[blockIdx.x] = s;
-  }
-}
-
-// One block: exclusive scan of the per-block counts, plus the total.
-__global__ void setup_scan(const int* block_counts, int n_blocks, int* block_offsets, int* total) {
-  __shared__ int sums[kScanThreads];
-  int tid = threadIdx.x;
-  int per = (n_blocks + kScanThreads - 1) / kScanThreads;
-  int lo = min(tid * per, n_blocks), hi = min(lo + per, n_blocks);
-  int own = 0;
-  for (int i = lo; i < hi; ++i) own += block_counts[i];
-  sums[tid] = own;
-  __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {  // inclusive Hillis-Steele scan
-    int add = tid >= off ? sums[tid - off] : 0;
-    __syncthreads();
-    sums[tid] += add;
-    __syncthreads();
-  }
-  int run = sums[tid] - own;
-  for (int i = lo; i < hi; ++i) {
-    block_offsets[i] = run;
-    run += block_counts[i];
-  }
-  if (tid == kScanThreads - 1) *total = sums[tid];
 }
 
 template <bool kAlpha>
-__global__ void setup_scatter(SetupIn in, const int* block_offsets, int capacity, float* rec_out,
-                              int* aabb_out, int* flat_out) {
-  __shared__ int warp_counts[kThreads / 32];
-  long long live = *in.cluster_count;
-  int first = blockIdx.x * kThreads;
-  if (first / kMaxTri >= live) return;
-  int flat = first + threadIdx.x;
-  float rec[kRec];
-  int box[4];
-  bool valid = eval_slot(in, live, flat, rec, box);
-  unsigned ballot = __ballot_sync(0xffffffffu, valid);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
+__global__ void __launch_bounds__(kThreads) setup_kernel(SetupIn in, int capacity, int n_groups, unsigned* status,
+                                                         float* rec_out, int* aabb_out, long long* tri_k,
+                                                         long long* tri_t, bool* valid_out, long long* counts) {
+  __shared__ __align__(16) float stage[kThreads * kRec];  // the group's records, at their ranks
+  __shared__ Corner corners[kGroup * kMaxVtx];
+  __shared__ int warp_counts[kWarps];
+  __shared__ int s_vb, s_offset, s_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long count = *in.cluster_count;
+  const int live = (int)(count < 0 ? 0 : count < in.K ? count : in.K);
+  const int n_live = (live + kGroup - 1) / kGroup;
+  unsigned* ticket = status + n_groups;
+
+  for (;;) {
+    if (tid == 0) s_vb = (int)atomicAdd(ticket, 1u);
+    __syncthreads();
+    const int vb = s_vb;
+    if (vb >= n_live) break;  // groups past the live clusters: one compare
+    const int k0 = vb * kGroup;
+    if (tid < kGroup * kMaxVtx) {  // each meshlet vertex of the group, once
+      const int k = k0 + tid / kMaxVtx;
+      if (k < live) corners[tid] = load_corner(in, in.mi[k], tid % kMaxVtx, in.xform + (size_t)k * 8);
+    }
+    __syncthreads();
+
+    const int c = tid / kMaxTri, t = tid - c * kMaxTri, k = k0 + c;
+    Tri o;
+    int li[3] = {0, 0, 0}, post = 0;
+    bool valid = false;
+    if (k < live && t < in.tri_count[k]) {
+      const int* tri = in.tris + ((size_t)in.mi[k] * kMaxTri + t) * 3;
+      for (int i = 0; i < 3; ++i) li[i] = c * kMaxVtx + tri[i];
+      post = in.post_pass[k];
+      valid = eval_tri(corners[li[0]], corners[li[1]], corners[li[2]], post, in.p, o);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int rank = __popc(ballot & ((1u << lane) - 1u)), agg = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = warp_counts[w];
+      rank += w < warp ? n : 0;
+      agg += n;
+    }
+    if (tid == 0) *(volatile unsigned*)(status + vb) = (vb == 0 ? kPrefix : kAggregate) | (unsigned)agg;
+
+    float box[4];
+    if (valid) {  // the record at its rank; col 13 (the compacted index) once the offset is known
+      float* r = stage + rank * kRec;
+      for (int i = 0; i < 9; ++i) r[i] = finite_or_zero(o.e[i]);
+      for (int i = 0; i < 3; ++i) r[9 + i] = finite_or_zero(o.z[i]);
+      for (int i = 0; i < 4; ++i) box[i] = finite_or_zero(o.box[i]);
+      r[12] = box[0];
+      r[14] = box[2];
+      r[15] = box[3];
+      for (int i = 0; i < 3; ++i) {
+        const Corner& q = corners[li[i]];
+        float* rc = r + 16 + 8 * i;
+        rc[0] = finite_or_zero(o.sx[i]);
+        rc[1] = finite_or_zero(o.sy[i]);
+        rc[2] = finite_or_zero(q.w);
+        rc[3] = finite_or_zero(q.nx);
+        rc[4] = finite_or_zero(q.ny);
+        rc[5] = finite_or_zero(q.nz);
+        rc[6] = finite_or_zero(q.u);
+        rc[7] = finite_or_zero(q.v);
+        r[40 + i] = finite_or_zero(q.vid);
+      }
+      r[43] = finite_or_zero((float)in.draw_id[k]);
+      r[44] = finite_or_zero((float)in.mat_index[k]);
+      r[45] = finite_or_zero((float)post);
+      r[46] = finite_or_zero((float)(k * kMaxTri + t));
+      r[47] = 0.0f;
+      if (kAlpha && post > 0) {  // cols 48-55: this triangle's mask row
+        const float* mask = in.alpha + (size_t)in.mi[k] * 8 * 128 + t;
+        for (int i = 0; i < 8; ++i) r[48 + i] = finite_or_zero(mask[i * 128]);
+      } else {
+        for (int i = 0; i < 8; ++i) r[48 + i] = 0.0f;
+      }
+    }
+    if (warp == 0) {
+      const int excl = vb == 0 ? 0 : look_back(status, vb, lane);
+      if (lane == 0) {
+        s_offset = excl;
+        if (vb > 0) *(volatile unsigned*)(status + vb) = kPrefix | (unsigned)(excl + agg);
+      }
+    }
+    __syncthreads();
+    const int offset = s_offset;
+    const int slot = offset + rank;
+    if (valid && slot < capacity) {
+      stage[rank * kRec + 13] = (float)slot;  // fragment ids = compacted index + pass offset
+      for (int i = 0; i < 4; ++i) aabb_out[(size_t)i * capacity + slot] = (int)box[i];
+      tri_k[slot] = k;
+      tri_t[slot] = t;
+      valid_out[slot] = true;
+    }
+    __syncthreads();
+    const int n_out = max(0, min(agg, capacity - offset));
+    const float4* src = reinterpret_cast<const float4*>(stage);
+    float4* dst = reinterpret_cast<float4*>(rec_out + (size_t)offset * kRec);
+    for (int i = tid; i < n_out * (kRec / 4); i += kThreads) dst[i] = src[i];
+    __syncthreads();  // stage and corners are free for the next group
+  }
+
+  // rows past the count: zero, once the last live group has its prefix
+  if (tid == 0) {
+    unsigned s = kPrefix;  // no live group: the count is 0
+    if (n_live > 0)
+      do s = *(const volatile unsigned*)(status + n_live - 1);
+      while ((s >> 30) != 2u);
+    s_total = (int)(s & kValue);
+    if (blockIdx.x == 0) {
+      counts[0] = min(s_total, capacity);       // count
+      counts[1] = max(s_total - capacity, 0);  // dropped
+    }
+  }
   __syncthreads();
-  int rank = __popc(ballot & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) rank += warp_counts[w];
-  int slot = block_offsets[blockIdx.x] + rank;
-  if (!valid || slot >= capacity) return;
-  rec[13] = (float)slot;  // fragment ids = compacted index + pass offset
-  float* dst = rec_out + (size_t)slot * kRec;
-  for (int i = 0; i < 47; ++i) dst[i] = rec[i];  // col 47 stays zero
-  if (kAlpha && in.post_pass[flat / kMaxTri] > 0) {  // cols 48-55: this triangle's mask row
-    const int k = flat / kMaxTri, t = flat - k * kMaxTri;
-    const float* mask = in.alpha + (size_t)in.mi[k] * 8 * 128 + t;
-    for (int i = 0; i < 8; ++i) dst[48 + i] = finite_or_zero(mask[i * 128]);
-  }  // else cols 48-55 stay zero
-  for (int i = 0; i < 4; ++i) aabb_out[(size_t)i * capacity + slot] = box[i];
-  flat_out[slot] = flat;
+  const int lo = min(s_total, capacity);
+  const size_t stride = (size_t)gridDim.x * kThreads, first = (size_t)blockIdx.x * kThreads + tid;
+  float4* rz = reinterpret_cast<float4*>(rec_out + (size_t)lo * kRec);
+  const size_t n4 = (size_t)(capacity - lo) * (kRec / 4);
+  for (size_t i = first; i < n4; i += stride) rz[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t i = first; i < (size_t)(capacity - lo); i += stride) {
+    for (int j = 0; j < 4; ++j) aabb_out[(size_t)j * capacity + lo + i] = 0;
+    tri_k[lo + i] = 0;
+    tri_t[lo + i] = 0;
+    valid_out[lo + i] = false;
+  }
+}
+
+template <bool kAlpha>
+int launch(const SetupIn& in, int capacity, unsigned* status, float* rec, int* aabb, long long* tri_k,
+           long long* tri_t, bool* valid, long long* counts, cudaStream_t stream) {
+  static int resident = 0;  // blocks of this kernel the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, setup_kernel<kAlpha>, kThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int n_groups = (in.K + kGroup - 1) / kGroup;
+  const int blocks = n_groups < resident ? (n_groups > 0 ? n_groups : 1) : resident;
+  setup_kernel<kAlpha><<<blocks, kThreads, 0, stream>>>(in, capacity, n_groups, status, rec, aabb, tri_k, tri_t,
+                                                        valid, counts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // alpha == nullptr launches the no-alpha variant, else the alpha variant.
-extern "C" int setup_launch(const long long* cluster_count, const int* mi, const int* tri_count,
-                            const float* xform, const int* draw_id, const int* mat_index,
+// status: setup_group()'s groups of K clusters + 1 zeroed words (group
+// status, then the ticket).  Outputs: rec [capacity, 56], aabb [4,
+// capacity], tri_k/tri_t [capacity], valid [capacity], counts = (count,
+// dropped).
+extern "C" int setup_launch(const long long* cluster_count, const long long* mi, const int* tri_count,
+                            const float* xform, const long long* draw_id, const int* mat_index,
                             const int* post_pass, int K, const int* tris, const float* vdata,
                             const int* vertices, const float* alpha, SetupParams params, int capacity,
-                            int* block_counts, int* block_offsets, int* total, float* rec, int* aabb,
-                            int* flat, cudaStream_t stream) {
+                            unsigned* status, float* rec, int* aabb, long long* tri_k, long long* tri_t, bool* valid,
+                            long long* counts, cudaStream_t stream) {
   SetupIn in{cluster_count, mi, tri_count, xform, draw_id, mat_index, post_pass, K, tris, vdata,
              vertices, alpha, params};
-  int n_blocks = (K * kMaxTri + kThreads - 1) / kThreads;
-  setup_count<<<n_blocks, kThreads, 0, stream>>>(in, block_counts);
-  setup_scan<<<1, kScanThreads, 0, stream>>>(block_counts, n_blocks, block_offsets, total);
-  if (alpha != nullptr)
-    setup_scatter<true><<<n_blocks, kThreads, 0, stream>>>(in, block_offsets, capacity, rec, aabb, flat);
-  else
-    setup_scatter<false><<<n_blocks, kThreads, 0, stream>>>(in, block_offsets, capacity, rec, aabb, flat);
-  return (int)cudaGetLastError();
+  return alpha != nullptr ? launch<true>(in, capacity, status, rec, aabb, tri_k, tri_t, valid, counts, stream)
+                          : launch<false>(in, capacity, status, rec, aabb, tri_k, tri_t, valid, counts, stream);
 }
+
+// Clusters per block iteration: the wrapper sizes the status array from it.
+extern "C" int setup_group() { return kGroup; }

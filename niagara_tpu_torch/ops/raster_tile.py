@@ -178,15 +178,20 @@ def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alp
     if W != tiles_x * TILE_W or H % TILE_H or tile_start.shape[0] - 1 != tiles_x * (H // TILE_H):
         raise ValueError(f"raster: {H}x{W} framebuffer does not match {tile_start.shape[0] - 1} tiles")
     lib = _build.lib()
-    ts = tile_start.to(torch.int32).contiguous()
-    pt = pair_tri.to(torch.int32).contiguous()
+    ts = tile_start.to(torch.int64).contiguous()
+    pt = pair_tri.to(torch.int64).contiguous()
     depth_in, vis_in = depth.contiguous(), vis.contiguous()
     depth_out, vis_out = torch.empty_like(depth_in), torch.empty_like(vis_in)
     rec = rec.contiguous()
-    n_tiles = ts.shape[0] - 1
-    rc = lib.raster_launch(ts.data_ptr(), pt.data_ptr(), rec.data_ptr(), int(frag_offset),
-                           depth_in.data_ptr(), vis_in.data_ptr(), depth_out.data_ptr(), vis_out.data_ptr(),
-                           W, tiles_x, n_tiles, int(band_row0 or 0), int(alpha_test), _build.stream_ptr(depth))
+    if rec.data_ptr() % 16:  # records are staged with 16-byte copies
+        rec = rec.clone()
+    # the persistent grid takes the tiles with most pairs first, from a counter
+    order = torch.argsort(torch.diff(ts), descending=True).to(torch.int32)
+    counter = torch.zeros(1, dtype=torch.int32, device=depth.device)
+    rc = lib.raster_launch(ts.data_ptr(), order.data_ptr(), pt.data_ptr(), rec.data_ptr(), int(frag_offset),
+                           depth_in.data_ptr(), vis_in.data_ptr(), depth_out.data_ptr(), vis_out.data_ptr(), W,
+                           tiles_x, ts.shape[0] - 1, int(band_row0 or 0), int(alpha_test), counter.data_ptr(),
+                           _build.stream_ptr(depth))
     _build.LAUNCHES[name] += 1
     _build.check(rc, name)
     return depth_out, vis_out

@@ -36,7 +36,6 @@ from .. import _build
 from . import compact, cullmath
 
 REC = 56
-SETUP_THREADS = 256  # triangle slots per block in csrc/setup.cu
 
 
 def setup_compact(tc: dict, scene, params, width: int, height: int, capacity: int) -> dict:
@@ -74,37 +73,31 @@ def setup_cuda(tc, scene, params, width, height, capacity):
     K = mi.shape[0]
     lib = _build.lib()
     i32 = lambda t: t.to(torch.int32).contiguous()
+    i64 = lambda t: t.to(torch.int64).contiguous()
     c = _view_consts(params, width, height)
     prm = _build.SetupParams((ctypes.c_float * 12)(*c[:12]), *c[12:])
-    n_blocks = -(-K * MESH_MAXTRI // SETUP_THREADS)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    block_offsets = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    rec = torch.zeros((capacity, REC), dtype=torch.float32, device=dev)
-    aabb = torch.zeros((4, capacity), dtype=torch.int32, device=dev)
-    flat = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    count_in = tc["count"].to(torch.int64).contiguous()
-    args = [i32(mi), i32(tc["tri_count"]), tc["xform"].contiguous(), i32(tc["draw_id"]),
+    n_groups = -(-K // lib.setup_group())
+    status = torch.zeros(n_groups + 1, dtype=torch.int32, device=dev)  # per-group look-back words, then the ticket
+    # every row is written by the kernel: a record, or zeros past the count
+    rec = torch.empty((capacity, REC), dtype=torch.float32, device=dev)
+    aabb = torch.empty((4, capacity), dtype=torch.int32, device=dev)
+    tri_k = torch.empty(capacity, dtype=torch.int64, device=dev)
+    tri_t = torch.empty(capacity, dtype=torch.int64, device=dev)
+    valid = torch.empty(capacity, dtype=torch.bool, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)  # count, dropped
+    args = [i64(tc["count"]), i64(mi), i32(tc["tri_count"]), tc["xform"].contiguous(), i64(tc["draw_id"]),
             i32(tc["mat_index"]), i32(tc["post_pass"])]
     scene_args = [scene.meshlet_tris.contiguous(), scene.meshlet_vdata.contiguous(),
                   scene.meshlet_vertices.contiguous()]
     rc = lib.setup_launch(
-        count_in.data_ptr(), *(a.data_ptr() for a in args), K,
-        *(a.data_ptr() for a in scene_args), None if alpha is None else alpha.data_ptr(), prm, capacity,
-        block_counts.data_ptr(), block_offsets.data_ptr(), total.data_ptr(),
-        rec.data_ptr(), aabb.data_ptr(), flat.data_ptr(), _build.stream_ptr(mi),
+        *(a.data_ptr() for a in args), K, *(a.data_ptr() for a in scene_args),
+        None if alpha is None else alpha.data_ptr(), prm, capacity, status.data_ptr(),
+        *(a.data_ptr() for a in (rec, aabb, tri_k, tri_t, valid, counts)), _build.stream_ptr(mi),
     )
     _build.LAUNCHES[name] += 1
     _build.check(rc, name)
-    raw = total[0].to(torch.int64)
-    count = torch.clamp_max(raw, capacity)
-    flat = flat.to(torch.int64)
-    return dict(
-        rec=rec, x0=aabb[0], y0=aabb[1], x1=aabb[2], y1=aabb[3],
-        tri_k=flat // MESH_MAXTRI, tri_t=flat % MESH_MAXTRI,
-        valid=torch.arange(capacity, device=dev) < count,
-        count=count, dropped=torch.clamp_min(raw - capacity, 0),
-    )
+    return dict(rec=rec, x0=aabb[0], y0=aabb[1], x1=aabb[2], y1=aabb[3], tri_k=tri_k, tri_t=tri_t, valid=valid,
+                count=counts[0], dropped=counts[1])
 
 
 def _rot_quat(q, px, py, pz):

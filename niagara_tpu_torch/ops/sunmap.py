@@ -11,7 +11,8 @@ band of tile rows (the row_window variant) for the per-frame update of an
 animated tail.  The map is the port's [H, W] framebuffer layout: a band of
 tile rows is the image's rows [row0 * 8, (row0 + n_rows) * 8).
 
-Sun frames (`fit_sun`) hold tensors on the caller's device; the fits and
+Sun frames (`fit_sun`) hold tensors on the card unless the caller passes
+another device (the CPU tests pass "cpu"); the fits and
 `dirty_tile_rows` run on the host in numpy, as the reference's do.
 """
 
@@ -24,10 +25,11 @@ from ..config import TASK_WGSIZE, TILE_H, TILE_W
 from . import compact, cull, cullmath, raster, raster_tile, shadow
 
 
-def fit_sun(sun_direction, scene_min, scene_max, device="cpu") -> dict:
+def fit_sun(sun_direction, scene_min, scene_max, device="cuda") -> dict:
     """Orthographic sun frame fit to a world AABB (sunmap.py:31): rows
     [3,3] (world -> sun basis: u, v along the map, w toward the scene),
-    lo/hi [3] extents in that basis.  Computed on the host in numpy."""
+    lo/hi [3] extents in that basis.  Computed on the host in numpy; the
+    tensors go to `device`, the card unless the caller names another."""
     L = -np.asarray(sun_direction, np.float32)
     L = L / np.linalg.norm(L)
     up = np.array([0.0, 1.0, 0.0], np.float32)
@@ -48,7 +50,7 @@ def fit_sun(sun_direction, scene_min, scene_max, device="cpu") -> dict:
     return {k: torch.tensor(np.asarray(a, np.float32), device=device) for k, a in (("rows", rows), ("lo", lo), ("hi", hi))}
 
 
-def fit_sun_to_draws(sun_direction, draws, margin: float = 8.0, device="cpu") -> dict:
+def fit_sun_to_draws(sun_direction, draws, margin: float = 8.0, device="cuda") -> dict:
     """Sun frame fit to every draw position plus `margin` for the meshes'
     radii (sunmap.py:64)."""
     p = np.asarray(draws.position, np.float32)

@@ -4,20 +4,31 @@ tile raster and shade must agree exactly, since both sides round every op
 as IEEE f32 (the kernels are built with --fmad=false).  The same for the
 alpha variants of setup and raster on the textured, alpha-classed small
 scene (cooker.small_alpha_scene, post_passes=2), and for the row_window
-variant of raster (a band of tile rows, both instances).
+variant of raster (a band of tile rows, both instances).  Stress cases
+hold both kernels to their plain versions where the small frames do not
+reach: crafted records (tests/test_torch_raster_box.py::crafted_setup)
+with more than one staged batch in a tile, empty tiles, all-tie merges,
+boxes over many tiles and a band; setup with part-filled and wholly
+culled clusters, more triangles than capacity, an odd live cluster count
+and a single live cluster.
 
-Marked `cuda`: skipped where there is no GPU.  On a GPU machine run
-`python -m pytest tests/test_torch_kernels.py -m cuda -q`.  These do not
-replace chip_smoke.py, which checks the same at headline size."""
+Marked `cuda`: skipped where there is no GPU.  On a GPU machine (no JAX
+there, so without tests/conftest.py) run
+`python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q`.
+These do not replace chip_smoke.py, which checks the same at headline
+size."""
 
+import numpy as np
 import pytest
 import torch
 
 from niagara_tpu_torch import _build, cooker, scene
 from niagara_tpu_torch.ops import raster_tile, setup
 from niagara_tpu_torch.render import camera, frame, presets, textures
+from test_torch_raster_box import crafted_setup, screen_triangles
 
 W, H = 256, 128
+DEV = "cuda"
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +150,89 @@ def test_raster_window_kernel_matches_plain(alpha_captured):
         pd, pv = raster_tile.raster_plain(*args, alpha_test=alpha, band_row0=5)
         assert torch.equal(kv, pv) and torch.equal(kd, pd)
         assert torch.equal(kv, fv[40:88]) and torch.equal(kd, fd[40:88])
+
+
+def _random_triangles(rng, n, width, height, size):
+    """n front-facing triangles in pixels (w = 1), corners within `size`
+    of a random anchor, depths in (0.05, 0.95)."""
+    a = rng.uniform([0, 0], [width, height], (n, 1, 2))
+    xy = a + rng.uniform(-size, size, (n, 3, 2))
+    return screen_triangles(xy, rng.uniform(0.05, 0.95, (n, 3)))
+
+
+@pytest.mark.parametrize("alpha", [False, True], ids=["opaque", "alpha_test"])
+def test_raster_kernel_stress(alpha):
+    """Crafted records: 12,000 small triangles crowded into the left half
+    of a 512x64 frame (over a thousand records, several staged batches,
+    per tile) and 80 large ones spanning many tiles, the right quarter's
+    tiles empty; a tie merge; a band of tile rows; with random opacity
+    masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on an NVIDIA GPU")
+    rng = np.random.default_rng(11)
+    width, height = 512, 64
+    corners = np.concatenate([_random_triangles(rng, 12000, width // 2, height, 6.0),
+                              _random_triangles(rng, 80, width // 2, height, 100.0)])
+    masks = uv = None
+    if alpha:  # 4 random mask halves, cells 1/8 of the uv unit square
+        masks = np.concatenate([rng.integers(0, 1 << 16, (len(corners), 4)),
+                                np.tile([0.0, 0.0, 8.0, 8.0], (len(corners), 1))], axis=1)
+        uv = rng.uniform(0.0, 1.0, (len(corners), 3, 2))
+    st = crafted_setup(corners, width, height, masks=masks, uv=uv, capacity=1 << 14, device=DEV)
+    tx, ty = width // 128, height // 8
+    pairs = raster_tile.emit_pairs(st, tiles_x=tx, tiles_y=ty, pair_capacity=1 << 16)
+    per_tile = torch.diff(pairs["tile_start"])
+    assert int(per_tile.max()) > 2 * 512 and int((per_tile == 0).sum()) > 0 and int(pairs["dropped"]) == 0
+    d0 = torch.zeros((height, width), device=DEV)
+    v0 = torch.full((height, width), 0x7FFFFFFF, dtype=torch.int32, device=DEV)
+    args = (pairs["tile_start"], pairs["pair_tri"], st["rec"], 0, d0, v0, tx)
+    kd, kv = raster_tile.raster_cuda(*args, alpha_test=alpha)
+    pd, pv = raster_tile.raster_plain(*args, alpha_test=alpha)
+    assert torch.equal(kv, pv) and torch.equal(kd, pd)
+    assert int((kv != 0x7FFFFFFF).sum()) > width * height // 4
+    if alpha:
+        assert not torch.equal(kv, raster_tile.raster_cuda(*args)[1]), "the masks discard pixels"
+    # every covered pixel ties with its own result at a higher id offset
+    shifted = raster_tile.raster_cuda(pairs["tile_start"], pairs["pair_tri"], st["rec"], 1 << 20, d0, v0, tx,
+                                      alpha_test=alpha)
+    td, tv = raster_tile.raster_cuda(*args[:4], *shifted, tx, alpha_test=alpha)
+    assert torch.equal(tv, kv) and torch.equal(td, kd)
+    band = raster_tile.emit_pairs(st, tiles_x=tx, tiles_y=ty, pair_capacity=1 << 16, row_window=(3, 4))
+    bargs = (band["tile_start"], band["pair_tri"], st["rec"], 0, d0[24:56], v0[24:56], tx)
+    bd, bv = raster_tile.raster_cuda(*bargs, alpha_test=alpha, band_row0=3)
+    assert torch.equal(bv, raster_tile.raster_plain(*bargs, alpha_test=alpha, band_row0=3)[1])
+    assert torch.equal(bv, kv[24:56]) and torch.equal(bd, kd[24:56])
+
+
+@pytest.mark.parametrize("case", ["part_filled", "all_culled", "over_capacity", "odd_count", "one_cluster"])
+def test_setup_kernel_stress(captured, case):
+    """The early pass's clusters, changed: triangle counts cut below 96,
+    a cluster moved behind the eye (all its triangles culled), a capacity
+    below the count, an odd live cluster count, a single live cluster."""
+    tds, params, _, capture = captured
+    tc, cap = capture["setup"][0]
+    tc = dict(tc)
+    live = int(tc["count"][0])
+    assert live > 8
+    rng = np.random.default_rng(5)
+    if case == "part_filled":
+        cut = torch.as_tensor(rng.integers(0, 97, tc["tri_count"].shape[0]), device=DEV)
+        tc["tri_count"] = torch.minimum(tc["tri_count"], cut.to(tc["tri_count"].dtype))
+    elif case == "all_culled":
+        xf = tc["xform"].clone()
+        xf[live // 2, 3] = 0.0  # scale 0: every triangle degenerate, none front-facing
+        tc["xform"] = xf
+    elif case == "over_capacity":
+        cap = 97
+    elif case == "odd_count":
+        tc["count"] = torch.tensor([live - 1 if live % 2 == 0 else live], device=DEV)
+    else:
+        tc["count"] = torch.ones(1, dtype=tc["count"].dtype, device=DEV)
+    got = setup.setup_cuda(tc, tds, params, W, H, cap)
+    ref = setup.setup_plain(tc, tds, params, W, H, cap)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    n = int(ref["count"])
+    assert n > 0 and (int(ref["dropped"]) > 0) == (case == "over_capacity")
+    if case == "all_culled":
+        assert not (ref["tri_k"][:n] == live // 2).any()

@@ -83,7 +83,7 @@ def frames(tmp_path_factory):
     tp, tsp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), tcfg)
     jtable, ttable = jax.device_put(table), textures.to_device(table, "cpu")
     rest = types.SimpleNamespace(position=ds.draw_position)
-    jsf, sf = jsm.fit_sun_to_draws(tsp.sun_direction, rest), sunmap.fit_sun_to_draws(tsp.sun_direction, rest)
+    jsf, sf = jsm.fit_sun_to_draws(tsp.sun_direction, rest), sunmap.fit_sun_to_draws(tsp.sun_direction, rest, device="cpu")
     tds = scene.from_numpy(ds, "cpu")
     kw = dict(map_w=MAP, map_h=MAP, **SUN_CAPS)
     static, sdrop = sunmap.build_static_sun_map(tds, sf, batch=16, num_draws=STATIC_N, **kw)

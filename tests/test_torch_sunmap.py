@@ -120,7 +120,8 @@ def plane(tmp_path_factory):
     tds = scene.from_numpy(scene.upload(tg, _plane_draws(cooker.synthesize_draws, tg.meshes.count)), "cpu")
     sun = np.array([0.2, 1.0, 0.1], np.float32)
     sun /= np.linalg.norm(sun)
-    jsf, tsf = jsm.fit_sun(sun, [-12, -1, -12], [12, 3, 12]), sunmap.fit_sun(sun, [-12, -1, -12], [12, 3, 12])
+    jsf = jsm.fit_sun(sun, [-12, -1, -12], [12, 3, 12])
+    tsf = sunmap.fit_sun(sun, [-12, -1, -12], [12, 3, 12], device="cpu")
     kw = dict(map_w=MAP, map_h=MAP, cmd_capacity=64, cluster_capacity=64, tri_capacity=1 << 10,
               pair_capacity=1 << 12)
     jmap, _, jdrop = jsm.render_sun_map(jds, jsf, camera_position=jnp.zeros(3), lod_target=jnp.float32(1e-6),
@@ -156,7 +157,7 @@ def alpha(tmp_path_factory):
     reference's full map and its batched static build."""
     jnp_ds, tds, draws = _alpha_scenes(tmp_path_factory.mktemp("alpha"))
     jds = jax.device_put(jnp_ds)
-    jsf, tsf = jsm.fit_sun_to_draws(SUN, draws), sunmap.fit_sun_to_draws(SUN, draws)
+    jsf, tsf = jsm.fit_sun_to_draws(SUN, draws), sunmap.fit_sun_to_draws(SUN, draws, device="cpu")
     tw = sunmap.map_texel_world(tsf, MAP, MAP)
     ref = {}
     ref["emit"], ref["lod"] = jsm.sun_cull(jds, jsf, None, None, 1, texel_world=tw,
@@ -432,7 +433,7 @@ def test_cutout_caster_holed_shadow(tmp_path):
     masks = opacity.bake_opacity(g, draws, materials, [[tex]])
     ds = scene.from_numpy(scene.upload(g, copy.deepcopy(draws), materials, masks), "cpu")
     assert ds.has_alpha_masks
-    sf = sunmap.fit_sun(np.array([0.0, 1.0, 0.0], np.float32), [-12, -1, -12], [12, 3, 12])
+    sf = sunmap.fit_sun(np.array([0.0, 1.0, 0.0], np.float32), [-12, -1, -12], [12, 3, 12], device="cpu")
     smap, drop = sunmap.render_sun_map(ds, sf, camera_position=np.zeros(3), lod_target=1e-6, lod_enabled=0,
                                        map_w=MAP, map_h=MAP, cmd_capacity=64, cluster_capacity=64,
                                        tri_capacity=1 << 10, pair_capacity=1 << 12)
