@@ -5,8 +5,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 `python3 chip_smoke.py --baseline DIR` also builds the kernels of another
 tree of the repository (DIR holds its niagara_tpu_torch/, e.g. an earlier
 commit unpacked by `git archive` into the ignored .cache/) and times its
-setup and raster wrappers against this tree's on the same captured inputs,
-in turns (baseline, this tree, this tree, baseline).
+setup, raster and shade wrappers against this tree's on the same captured
+inputs, in turns (baseline, this tree, this tree, baseline).
 
 Phases, each reported on its own line:
   device        -- needs CUDA (exits nonzero without it); prints the card's
@@ -31,7 +31,8 @@ Phases, each reported on its own line:
                    against its plain torch version on the same inputs
                    (exact: both round every op as IEEE f32, the kernels are
                    built with --fmad=false), both timed with CUDA events
-                   (and the baseline's kernels, in turns);
+                   behind a spin kernel that hides the host's enqueue (and
+                   the baseline's kernels, in turns);
   alpha small   -- the textured, alpha-classed small scene
                    (cooker.small_alpha_scene), two frames, kernels on the
                    card against the plain path on the CPU; its masks must
@@ -77,7 +78,8 @@ Phases, each reported on its own line:
                    kernel launches per frame, device busy time and idle
                    share, the costliest device ops.
 The line before the last is the per-kernel JSON record (times, launches and
-bounds of the steady frames); the last line is {"ok": true, "device": ...}.
+bounds of the steady frames; shade's row also holds its alpha path's numbers
+under "alpha_path"); the last line is {"ok": true, "device": ...}.
 Any failed check raises (nonzero exit).
 """
 
@@ -109,6 +111,9 @@ F32_OPS_S = 67e12
 # per covered pixel (weights, six interpolated channels, uv/pixel areas)
 SETUP_OPS, RASTER_OPS, MASK_OPS, SHADE_OPS = 420, 28, 34, 70
 REC_BYTES = 56 * 4
+# clock cycles of the spin kernel ahead of each timed launch (~1 ms at the
+# H100's 1.98 GHz boost clock)
+SPIN_CYCLES = 2_000_000
 # the benchmark's sun map (bench.py:64-66, 143-266): 2048^2, static draws in
 # batches of 16,384, the last 2% of the draws animated
 SUN_MAP, SUN_BATCH = 2048, 1 << 14
@@ -176,12 +181,17 @@ def in_turns(new_fn, old_fn, reps: int) -> tuple[float, float | None]:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps launches, after a warm-up."""
+    """Mean device milliseconds of fn() over reps launches, after a warm-up.
+    A spin kernel of about a millisecond a launch runs first, so the host
+    enqueues the launches while the device is busy and the events time the
+    device's work, not the wrappers' Python (a shade launch takes less
+    device time than its wrapper takes on the host)."""
     import torch
 
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -322,6 +332,10 @@ def main() -> int:
     for r in rows:
         if r["name"] in ("setup_alpha", "raster_alpha"):
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
+        elif r["name"] == "shade":  # one row per kernel: shade's alpha-path numbers ride in its opaque row
+            keys = ("ms", "baseline_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+            kernels["shade"]["alpha_path"] = dict({k: r[k] for k in keys if k in r},
+                                                  launches=alpha["launches"]["shade"])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
     del alpha
@@ -585,10 +599,13 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
             raster_work(args, alpha, H, W, tiles_x))
 
     streams, vis = capture["shade"]
-    ka = raster_tile.shade_cuda(streams, vis)
-    err = max_abs_err(ka, raster_tile.shade_plain(streams, vis))
-    log(f"{tag}kernels", f"{label} shade: 2 streams, {int((vis != INVALID).sum())} covered px, max_abs_err {err}")
-    add("shade", err, (cuda_ms(lambda: raster_tile.shade_cuda(streams, vis), 20), 0.0),
+    ka, pa = raster_tile.shade_cuda(streams, vis), raster_tile.shade_plain(streams, vis)
+    err = max_abs_err(ka, pa)
+    check(torch.equal(ka.view(torch.int32), pa.view(torch.int32)), f"{label} shade: not bit for bit")
+    log(f"{tag}kernels", f"{label} shade: {len(streams)} streams, {int((vis != INVALID).sum())} covered px, "
+        f"max_abs_err {err}, bit for bit")
+    old = (lambda: braster.shade_cuda(streams, vis)) if base else None
+    add("shade", err, in_turns(lambda: raster_tile.shade_cuda(streams, vis), old, 20),
         cuda_ms(lambda: raster_tile.shade_plain(streams, vis), 5), shade_work(streams, vis))
 
     sources = dict(setup=("setup.cu", "niagara_tpu/ops/setup_fused.py:190"),
@@ -600,10 +617,10 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
     for name, r in rows.items():
         check(r["err"] == 0.0, f"{name} output differs from its plain version")
         bms, by = bound(r["bytes"], r["ops"])
-        was = f" (baseline {r['base_ms']:.4f} ms)" if r["base_ms"] and name != "shade" else ""
+        was = f" (baseline {r['base_ms']:.4f} ms)" if r["base_ms"] else ""
         log(f"{tag}kernels", f"{label} {name}: kernel {r['ms']:.4f} ms{was} vs plain {r['plain_ms']:.4f} ms "
             f"per frame, bound {bms:.4f} ms by {by} ({r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop), "
-            f"max_abs_err {r['err']}")
+            f"share {bms / r['ms']:.1%}, max_abs_err {r['err']}")
         src, rep = sources[name]
         out.append(dict(name=name, route="cuda", source=f"niagara_tpu_torch/csrc/{src}", replaces=rep,
                         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by,

@@ -50,11 +50,22 @@ _lib = None
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
+SHADE_STREAMS = 4  # kMaxStreams in csrc/shade.cu
+
+
 class SetupParams(ctypes.Structure):
     """Mirror of `struct SetupParams` in csrc/setup.cu."""
 
     _fields_ = [("view", ctypes.c_float * 12), ("p00", ctypes.c_float), ("p11", ctypes.c_float),
                 ("znear", ctypes.c_float), ("width", ctypes.c_float), ("height", ctypes.c_float)]
+
+
+class ShadeStreams(ctypes.Structure):
+    """Mirror of `struct ShadeStreams` in csrc/shade.cu: up to SHADE_STREAMS
+    record streams (records, count, fragment offset) and their number."""
+
+    _fields_ = [("rec", ctypes.c_void_p * SHADE_STREAMS), ("count", ctypes.c_void_p * SHADE_STREAMS),
+                ("off", ctypes.c_int * SHADE_STREAMS), ("n", ctypes.c_int)]
 
 
 _SIGNATURES = {
@@ -66,8 +77,8 @@ _SIGNATURES = {
     # tile_start, tile_order, pair_tri, rec, frag_off, depth_in, vis_in, depth_out, vis_out, width,
     # tiles_x, n_tiles, band_row0, alpha_test, tile_counter, stream
     "raster_launch": [P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P],
-    # vis, n_px, width, rec0, off0, count0, rec1, off1, count1, attr, stream
-    "shade_launch": [P, I, I, P, I, P, P, I, P, P, P],
+    # vis, width, height, streams, attr, stream
+    "shade_launch": [P, I, I, ShadeStreams, P, P],
 }
 
 

@@ -286,23 +286,33 @@ def shade_tiles(streams: list[dict], vis) -> torch.Tensor:
 
 
 def shade_cuda(streams, vis):
-    """The shade kernel (csrc/shade.cu): shade_plain's contract."""
+    """The shade kernel (csrc/shade.cu): shade_plain's contract for 1 to
+    _build.SHADE_STREAMS streams on a framebuffer whose width is a multiple
+    of 128."""
+    if not 1 <= len(streams) <= _build.SHADE_STREAMS:
+        raise ValueError(f"the shade kernel takes 1 to {_build.SHADE_STREAMS} record streams, got {len(streams)}")
     _build.require_cuda(vis, "shade")
-    if len(streams) != 2:
-        raise ValueError("the shade kernel takes the frame's two record streams (early, late)")
     H, W = vis.shape
     _build.expect(vis, torch.int32, (H, W), "shade vis")
-    for s in streams:
-        _build.expect(s["rec"], torch.float32, (REC,), "shade records")
-    lib = _build.lib()
+    if W % TILE_W:
+        raise ValueError(f"shade: width {W} is not a multiple of {TILE_W}")
+    arg = _build.ShadeStreams(n=len(streams))
+    keep = []  # the tensors whose pointers the launch takes
+    for i, s in enumerate(streams):
+        rec = s["rec"]
+        _build.expect(rec, torch.float32, (REC,), "shade records")
+        rec = rec.contiguous()
+        if rec.data_ptr() % 16:  # records are read with 16-byte loads
+            rec = rec.clone()
+        count = s["count"].to(torch.int64).reshape(1)
+        _build.expect(count, torch.int64, (1,), "shade count")
+        keep += [rec, count]
+        arg.rec[i], arg.count[i], arg.off[i] = rec.data_ptr(), count.data_ptr(), int(s["frag_off"])
     v = vis.contiguous()
     attr = torch.empty((H, W, ATTR_CHANNELS), dtype=torch.float32, device=vis.device)
-    recs = [s["rec"].contiguous() for s in streams]
-    counts = [s["count"].to(torch.int64).reshape(1).contiguous() for s in streams]
-    rc = lib.shade_launch(v.data_ptr(), H * W, W,
-                          recs[0].data_ptr(), int(streams[0]["frag_off"]), counts[0].data_ptr(),
-                          recs[1].data_ptr(), int(streams[1]["frag_off"]), counts[1].data_ptr(),
-                          attr.data_ptr(), _build.stream_ptr(vis))
+    if attr.data_ptr() % 16:  # the planes are written with 16-byte stores
+        raise RuntimeError("shade: attribute planes not 16-byte aligned")
+    rc = _build.lib().shade_launch(v.data_ptr(), W, H, arg, attr.data_ptr(), _build.stream_ptr(vis))
     _build.LAUNCHES["shade"] += 1
     _build.check(rc, "shade")
     return attr

@@ -10,7 +10,9 @@ reach: crafted records (tests/test_torch_raster_box.py::crafted_setup)
 with more than one staged batch in a tile, empty tiles, all-tie merges,
 boxes over many tiles and a band; setup with part-filled and wholly
 culled clusters, more triangles than capacity, an odd live cluster count
-and a single live cluster.
+and a single live cluster; shade with 1 to 4 seeded random record streams,
+ids in the gaps between them, uncovered pixels, degenerate records and a
+framebuffer one tile wide.
 
 Marked `cuda`: skipped where there is no GPU.  On a GPU machine (no JAX
 there, so without tests/conftest.py) run
@@ -78,6 +80,70 @@ def test_shade_kernel_matches_plain(captured):
     got = raster_tile.shade_cuda(streams, vis)
     assert torch.equal(got, raster_tile.shade_plain(streams, vis))
     assert int((vis != 0x7FFFFFFF).sum()) > 2000
+
+
+def _shade_streams(rng, n_streams):
+    """n_streams seeded random record streams, each with rows past its
+    count (NaN: no pixel may read them) and a gap of unused ids before the
+    next stream's offset.  Of the live records a fifth have all-zero edge
+    equations (wsum == 0, the inv = 0 branch) and a fifth corners whose
+    pixel area is under 1e-6 (the duv clamp).  Returns (streams, live id
+    ranges, dead id ranges)."""
+    streams, live, dead, off = [], [], [(0, 5)], 5
+    for _ in range(n_streams):
+        count, cap = int(rng.integers(50, 400)), int(rng.integers(400, 500))
+        rec = rng.normal(0.0, 3.0, (cap, 56)).astype(np.float32)
+        rec[:, 0:9] = rng.uniform(-1e-4, 1e-4, (cap, 9))
+        rec[:, 2:9:3] = rng.uniform(0.2, 1.0, (cap, 3))  # e0, e1, e2 > 0.15 on the frame
+        rec[:, 16:40:8] = rng.uniform(0.0, 100.0, (cap, 3))  # corner x, y (cols 16/17, 24/25, 32/33)
+        rec[:, 17:40:8] = rng.uniform(0.0, 100.0, (cap, 3))
+        rec[:, 40:46] = rng.integers(0, 1 << 20, (cap, 6))
+        kind = rng.integers(0, 5, cap)
+        rec[kind == 0, 0:9] = 0.0
+        tiny = kind == 1
+        rec[tiny, 24] = rec[tiny, 16] + 1e-4
+        rec[tiny, 25] = rec[tiny, 17]
+        rec[tiny, 32] = rec[tiny, 16] + 2e-4
+        rec[tiny, 33] = rec[tiny, 17] + 1e-3
+        rec[count:] = np.nan
+        streams.append(dict(rec=torch.as_tensor(rec, device=DEV), count=torch.tensor(count, device=DEV),
+                            frag_off=off))
+        live.append((off, off + count))
+        gap = int(rng.integers(1, 300))
+        dead.append((off + count, off + cap + gap))
+        off += cap + gap
+    dead.append((off, off + 1000))
+    return streams, live, dead
+
+
+@pytest.mark.parametrize("n_streams, width, height", [(1, 128, 48), (2, 384, 40), (3, 128, 72), (4, 256, 33)])
+def test_shade_kernel_stress(n_streams, width, height):
+    """Seeded random streams and a vis buffer with ids in each stream, in
+    the gaps (below the first offset, past each count, after the last
+    stream), and 0x7FFFFFFF; a framebuffer one tile wide and a height that
+    is no multiple of the kernel's rows a block.  The kernel equals
+    shade_plain bit for bit, and uncovered pixels are zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on an NVIDIA GPU")
+    rng = np.random.default_rng(23 + n_streams)
+    streams, live, dead = _shade_streams(rng, n_streams)
+    ranges = live + dead + [(0x7FFFFFFF, 0x80000000)]
+    # each pixel's range, then an id in it; pairs of pixels along a row share
+    # an id, as a frame's triangles give runs
+    pick = rng.integers(0, len(ranges), (height, width // 2)).repeat(2, axis=1)
+    frac = rng.random((height, width // 2)).repeat(2, axis=1)
+    lo, hi = (np.array([r[k] for r in ranges]) for k in (0, 1))
+    vis = torch.as_tensor((lo[pick] + frac * (hi - lo)[pick]).astype(np.int64).astype(np.int32), device=DEV)
+    assert len(np.unique(pick)) == len(ranges)
+    before = _build.LAUNCHES["shade"]
+    got = raster_tile.shade_cuda(streams, vis)
+    assert _build.LAUNCHES["shade"] == before + 1
+    ref = raster_tile.shade_plain(streams, vis)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), "not bit for bit"
+    covered = torch.as_tensor(pick < n_streams, device=DEV)
+    assert not got[~covered].any(), "pixels in no stream's range are zero"
+    assert bool(torch.isfinite(got[covered]).all())
+    assert (got[covered][:, :6] == 0).all(dim=1).any(), "some pixels resolve to a record with wsum == 0"
 
 
 @pytest.fixture(scope="module")

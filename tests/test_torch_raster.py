@@ -92,18 +92,29 @@ def test_emit_pairs_matches_reference(streams, squeeze):
     assert (got["demand_vec"].numpy()[:3] > 0).all()
 
 
-def test_raster_and_shade_match_reference(streams):
+@pytest.fixture(scope="module")
+def rastered(streams):
+    """Both packages' raster of the two streams onto the seeded carry: (JAX
+    raster stats per stream, the port's, JAX depth/vis tiles, the port's
+    depth/vis); each stats dict holds the pass's record stream."""
     depth0, vis0 = _carry(3)
     jd = jrt.image_to_tiles(jnp.asarray(depth0), H, W)
     jv = jrt.image_to_tiles(jnp.asarray(vis0), H, W)
     td, tv = torch.from_numpy(depth0), torch.from_numpy(vis0)
-    j_streams, t_streams = [], []
+    j_stats, t_stats = [], []
     for i, st in enumerate(streams):
         kw = dict(tiles_x=TX, tiles_y=TY, pair_capacity=1 << 15, frag_offset=i * CAP)
         jd, jv, jstats = jrt.rasterize_tiles(_jax_setup(st), jd, jv, interpret=True, **kw)
         td, tv, tstats = raster_tile.rasterize_tiles(st, td, tv, **kw)
-        j_streams.append(jstats["stream"])
-        t_streams.append(tstats["stream"])
+        j_stats.append(jstats)
+        t_stats.append(tstats)
+    return j_stats, t_stats, jd, jv, td, tv
+
+
+def test_raster_and_shade_match_reference(rastered):
+    j_stats, t_stats, jd, jv, td, tv = rastered
+    j_streams, t_streams = [s["stream"] for s in j_stats], [s["stream"] for s in t_stats]
+    for jstats, tstats in zip(j_stats, t_stats):
         for k in ("pair_count", "drop_vec", "demand_vec"):
             np.testing.assert_array_equal(tstats[k].numpy(), np.asarray(jstats[k]), err_msg=k)
 
@@ -124,6 +135,54 @@ def test_raster_and_shade_match_reference(streams):
         a, b = got_attr[..., ch], ref_attr[..., ch]
         np.testing.assert_allclose(a, b, rtol=0, atol=2.5e-4 * np.abs(b).max(), err_msg=f"channel {ch}")
     assert (got_attr[~won] == 0).all(), "carried ids and empty pixels resolve to no record"
+
+
+def test_shade_edge_pixels_match_reference(rastered):
+    """The two streams over the rastered vis with a seeded random tenth of
+    the pixels cleared to 0x7FFFFFFF and another tenth set to ids in the
+    gap past the early stream's count (below the late stream's offset):
+    both packages give zero planes there and the same planes elsewhere,
+    the integer channels exactly, the interpolated ones within
+    test_raster_and_shade_match_reference's tolerance (2.5e-4 of each
+    channel's range: XLA:CPU contracts the edge functions into FMAs)."""
+    j_stats, t_stats, _, _, _, tv = rastered
+    j_streams, t_streams = [s["stream"] for s in j_stats], [s["stream"] for s in t_stats]
+    count0 = int(t_streams[0]["count"])
+    assert count0 + 100 < t_streams[1]["frag_off"] == CAP
+    rng = np.random.default_rng(17)
+    pick = rng.random((H, W))
+    cleared, gap = pick < 0.1, (pick >= 0.1) & (pick < 0.2)
+    vis = tv.numpy().copy()
+    won = vis < 2 * CAP
+    assert (cleared & won).sum() > 200 and (gap & won).sum() > 200 and (gap & (vis >= CAP) & won).sum() > 50
+    vis[cleared] = 0x7FFFFFFF
+    vis[gap] = rng.integers(count0, CAP, int(gap.sum()))
+    ref_attr = np.asarray(jrt.attr_tiles_to_image(
+        jrt.shade_tiles(j_streams, jrt.image_to_tiles(jnp.asarray(vis), H, W), tiles_x=TX, interpret=True), H, W))
+    got_attr = raster_tile.shade_tiles(t_streams, torch.from_numpy(vis)).numpy()
+    off = cleared | gap
+    assert (got_attr[off] == 0).all() and (ref_attr[off] == 0).all(), "no record resolves there"
+    keep = ~off & won
+    assert keep.sum() > 2000
+    np.testing.assert_array_equal(got_attr[..., 6:12], ref_attr[..., 6:12])
+    for ch in range(raster_tile.ATTR_CHANNELS):
+        a, b = got_attr[..., ch][keep], ref_attr[..., ch][keep]
+        np.testing.assert_allclose(a, b, rtol=0, atol=2.5e-4 * np.abs(b).max(), err_msg=f"channel {ch}")
+
+
+def test_shade_kernel_takes_one_to_four_streams(streams):
+    """shade_cuda raises on no stream and on more than four, before it
+    looks at the device; on a CPU tensor it has no kernel and raises too
+    (shade_tiles takes the plain version there, for any stream count)."""
+    vis = torch.full((H, W), 0x7FFFFFFF, dtype=torch.int32)
+    one = dict(rec=streams[0]["rec"], count=streams[0]["count"], frag_off=0)
+    for n in (0, 5):
+        with pytest.raises(ValueError, match="1 to 4 record streams"):
+            raster_tile.shade_cuda([one] * n, vis)
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        raster_tile.shade_cuda([one] * 4, vis)
+    five = [dict(one, frag_off=i * CAP) for i in range(5)]
+    assert (raster_tile.shade_tiles(five, vis) == 0).all()
 
 
 def test_rasterize_class_caps_match_reference(streams):
