@@ -14,7 +14,8 @@ Phases, each reported on its own line:
   build         -- nvcc builds csrc/*.cu (one process per source, all at
                    once) while g++ builds the port's C++ cooker (and the
                    baseline tree's kernels, when given); each kernel's
-                   registers, shared memory and spills from ptxas;
+                   registers, shared memory and spills from ptxas; the
+                   city's preparation starts beside it (city scene);
   scene         -- the procedural mesh, 1,000,000 draws (the reference's
                    PCG scatter), uploaded to the card;
   small         -- a 256x128 frame of 48 draws through the kernels on the
@@ -73,27 +74,56 @@ Phases, each reported on its own line:
   sun kernels   -- the window variant (both instances, tie merge) replayed
                    on the steady frame's band and on the forced band against
                    raster_plain, exact;
+  bloom kernels -- the bloom chain (csrc/bloom.cu) on the alpha path's
+                   steady frame-4 g0 at 1920x1080 with its emissive channel
+                   replaced by seeded nonzero values (the scenes' own is 0):
+                   each level's kernel against its plain version, bit for
+                   bit, then compute_bloom and sample_bloom_fullres against
+                   the plain chain; times, bounds, the library yardsticks
+                   (conv2d, conv_transpose2d, interpolate), and the launches
+                   and device time of one bloom a frame under the profiler;
+  city small    -- the reduced glTF city (16 blocks) through the .glb ->
+                   cook -> DDS -> bake -> table path, two 256x128 frames from
+                   its camera with bloom on, kernels on the card against the
+                   plain path on the CPU;
+  city scene    -- the procedural city at bench.py's defaults (42 blocks),
+                   generated and cooked cold in a worker process, then
+                   loaded from its scene cache, decoded (no texture may fall
+                   back to magenta), baked and tabled on a worker thread,
+                   both started at startup, so it overlaps the paths above;
+                   uploaded to the card;
+  city warmup/city main -- bench.py's glTF frame (bench.py:393-459):
+                   1920x1080, post_passes=2, presets.scene_capacities, the
+                   scene's camera and sun, bloom on; two cold frames, then
+                   three steady ones with the counters at zero, loss-free
+                   (pair_drop_vec too), demand beside the reference's counts;
+  city kernels  -- setup, raster and shade replayed on the city's
+                   transitional and steady frames, exact;
   profile       -- torch.profiler over five more frames of each path (and
                    of the sun path's update + splice alone): device ops and
                    kernel launches per frame, device busy time and idle
-                   share, the costliest device ops.
-The line before the last is the per-kernel JSON record (times, launches and
-bounds of the steady frames; shade's row also holds its alpha path's numbers
-under "alpha_path"); the last line is {"ok": true, "device": ...}.
-Any failed check raises (nonzero exit).
+                   share, the bloom kernels' launches and time, the
+                   costliest device ops.
+Every path renders with bloom on, as bench.py does.  The line before the
+last is the per-kernel JSON record (times, launches and bounds of the
+steady frames; shade's row also holds its alpha path's numbers under
+"alpha_path", the city's under "city_path"); the last line is
+{"ok": true, "device": ...}.  Any failed check raises (nonzero exit).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import importlib.util
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -117,6 +147,23 @@ SPIN_CYCLES = 2_000_000
 # the benchmark's sun map (bench.py:64-66, 143-266): 2048^2, static draws in
 # batches of 16,384, the last 2% of the draws animated
 SUN_MAP, SUN_BATCH = 2048, 1 << 14
+# bloom.cu's f32 operations per output texel and channel: 36 taps (down),
+# 16 taps and the accumulate (up), 4 taps (x2), a multiply and an add each
+BLOOM_OPS = {"bloom_down": 72, "bloom_up": 33, "bloom_x2": 8}
+# the reference's bloom is no Pallas kernel: each kernel replaces a plain
+# XLA stencil function
+BLOOM_REPLACES = {"bloom_down": "niagara_tpu/ops/bloom.py:95", "bloom_up": "niagara_tpu/ops/bloom.py:119",
+                  "bloom_x2": "niagara_tpu/ops/bloom.py:180"}
+# the procedural city: bench.py's (defaults of synth_city.generate_city)
+# and tests/test_city.py's reduced one, under the ignored .cache/
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CITY_DIR, CITY_SMALL_DIR = os.path.join(ROOT, ".cache", "city"), os.path.join(ROOT, ".cache", "city_small")
+CITY_SMALL = dict(blocks=4, facade_seg=8, tex_size=64)
+# the reference's city counts (BENCH_r05, its frame 7; counts only)
+CITY_REFERENCE = ("15,876 draws, 289,025 meshlets, 312 materials, 312 textures, 5,292 alpha draws; tri demand "
+                  "1,857/131,072, pairs 77,292/262,144, class demand [31, 69, 149, 1013, 445, 150], giant cap 256")
+# bloom's launches over frames 2-4: 7 levels down, 7 up, 1 expansion a frame
+BLOOM_LAUNCHES = {"bloom_down": 21, "bloom_up": 21, "bloom_x2": 3}
 
 
 def log(phase: str, msg: str) -> None:
@@ -143,7 +190,7 @@ def ptxas_resources(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("setup_kernel", "setup_scatter", "setup_count", "setup_scan", "raster_tile",
-                                     "shade_px") if k in mangled), mangled)
+                                     "shade_px", "bloom_down", "bloom_up", "bloom_x2") if k in mangled), mangled)
             name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
             spill = ""
         elif name and "spill" in line:
@@ -256,10 +303,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false -- this check needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from niagara_tpu_torch import _build, cooker, scene
+    from niagara_tpu_torch import _build
     from niagara_tpu_torch.cooker import bindings
-    from niagara_tpu_torch.ops import raster_tile, setup, sunmap
-    from niagara_tpu_torch.render import camera, frame, presets, textures
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -267,19 +312,50 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     base = load_baseline(opts.baseline) if opts.baseline else None
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_build.lib), pool.submit(bindings.get_lib)] + ([pool.submit(base[0].lib)] if base else [])
-        for j in jobs:
-            j.result()
-    log("build", f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_info['seconds']}) -> "
-        f"{_build.build_info['path']}, cooker {bindings.lib_path()}")
-    for line in ptxas_resources(_build.build_info["log"]):
-        log("build", f"ptxas {line}")
-    if base:
-        log("build", f"baseline {opts.baseline}: {base[0].build_info['path']}")
-        for line in ptxas_resources(base[0].build_info["log"]):
-            log("build", f"baseline ptxas {line}")
+    # the city's preparation is host work (generation, the C++ cook, DDS
+    # decode, bake): it runs on its own thread from here on, the cook in a
+    # process of its own, beside the build and the paths on the card, and
+    # is collected in the city scene phase
+    city_pool = ThreadPoolExecutor(1)
+    cook_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        city_job = city_pool.submit(prepare_city, CITY_DIR, {}, cook_pool)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            jobs = [pool.submit(_build.lib), pool.submit(bindings.get_lib)] + (
+                [pool.submit(base[0].lib)] if base else [])
+            for j in jobs:
+                j.result()
+        log("build", f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_info['seconds']}) -> "
+            f"{_build.build_info['path']}, cooker {bindings.lib_path()}")
+        for line in ptxas_resources(_build.build_info["log"]):
+            log("build", f"ptxas {line}")
+        if base:
+            log("build", f"baseline {opts.baseline}: {base[0].build_info['path']}")
+            for line in ptxas_resources(base[0].build_info["log"]):
+                log("build", f"baseline ptxas {line}")
+        kernels = run_all(base, city_job, dev, smi)
+    finally:
+        city_pool.shutdown(wait=True, cancel_futures=True)
+        cook_pool.shutdown(wait=True, cancel_futures=True)
+
+    order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade", "bloom_down",
+             "bloom_up", "bloom_x2")
+    check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
+    print(smi)
+    print(json.dumps({"kernels": [kernels[n] for n in order]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_all(base, city_job, dev, smi) -> dict:
+    """Every phase after the build; returns the per-kernel rows."""
+    import torch
+
+    from niagara_tpu_torch import _build, cooker, scene
+    from niagara_tpu_torch.ops import bloom, raster_tile, setup, sunmap
+    from niagara_tpu_torch.render import camera, frame, presets, textures
 
     t0 = time.perf_counter()
     geometry = cooker.cook_procedural()
@@ -293,8 +369,8 @@ def main() -> int:
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = {"setup": 6, "setup_alpha": 0, "raster": 6, "raster_alpha": 0, "raster_window": 0,
-                "raster_alpha_window": 0, "shade": 3}
+    expected = dict(setup=6, setup_alpha=0, raster=6, raster_alpha=0, raster_window=0, raster_alpha_window=0, shade=3,
+                    **BLOOM_LAUNCHES)
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
@@ -322,8 +398,8 @@ def main() -> int:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = {"setup": 0, "setup_alpha": 6, "raster": 3, "raster_alpha": 3, "raster_window": 0,
-                "raster_alpha_window": 0, "shade": 3}
+    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=0, shade=3,
+                    **BLOOM_LAUNCHES)
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
@@ -333,9 +409,9 @@ def main() -> int:
         if r["name"] in ("setup_alpha", "raster_alpha"):
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
         elif r["name"] == "shade":  # one row per kernel: shade's alpha-path numbers ride in its opaque row
-            keys = ("ms", "baseline_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
-            kernels["shade"]["alpha_path"] = dict({k: r[k] for k in keys if k in r},
-                                                  launches=alpha["launches"]["shade"])
+            kernels["shade"]["alpha_path"] = side_row(r, alpha["launches"]["shade"])
+    for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom, _build):
+        kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
     del alpha
@@ -350,24 +426,115 @@ def main() -> int:
                                           launches=sun["launches"]["raster_alpha_window"])
     profile_frames("sun profile", lambda st, i: sun["step"](st, 0.3 * (i + 6))[0][2], sun["state"])
     profile_frames("sun update profile", lambda st, i: sun["update_step"](0.3 * (i + 11))[1], None)
+    del ds, tex, sun
+    torch.cuda.empty_cache()
 
-    order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade")
-    check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
-    print(smi)
-    print(json.dumps({"kernels": [kernels[n] for n in order]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    # the procedural glTF city: reduced, then at bench.py's size
+    small = prepare_city(CITY_SMALL_DIR, CITY_SMALL)
+    sd = small["sd"]
+    small_reference("city small", dev, small["scene"], small["table"],
+                    frame.FrameConfig(width=256, height=128, post_passes=2,
+                                      **presets.scene_capacities(sd.geometry, sd.draws)),
+                    scene, camera, frame, cam=camera.Camera(position=sd.camera_position,
+                                                            orientation=sd.camera_orientation),
+                    sun_direction=sd.sun_direction)
+    t0 = time.perf_counter()
+    city = city_job.result()
+    waited = time.perf_counter() - t0
+    sd = city["sd"]
+    t0 = time.perf_counter()
+    ds = scene.from_numpy(city["scene"], dev)
+    tex = textures.to_device(city["table"], dev)
+    torch.cuda.synchronize()
+    log("city scene", f"{sd.draws.count} draws, {ds.num_meshlets} meshlets, {len(sd.materials['diffuse'])} materials, "
+        f"{len(sd.texture_paths)} textures, {int((sd.draws.post_pass == 1).sum())} alpha draws, texel pool "
+        f"{city['table'].texels.shape[0]}, 0 of {len(sd.texture_paths)} textures substituted | seconds on the worker "
+        f"thread: {city['seconds']}; waited {waited:.1f} s for it, upload {time.perf_counter() - t0:.1f} s | the "
+        f"reference: {CITY_REFERENCE}")
+    caps = presets.scene_capacities(sd.geometry, sd.draws)
+    cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **caps)
+    log("city scene", f"capacities {caps}")
+    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=0, shade=3,
+                    **BLOOM_LAUNCHES)
+    cam = camera.Camera(position=sd.camera_position, orientation=sd.camera_orientation)
+    path = run_path("city ", ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=cam,
+                    sun_direction=sd.sun_direction)
+    s = path["stats"]
+    log("city main", f"frame 4 demand: tris {int(s['tri_count'])}/{cfg.tri_capacity} (late {cfg.late_tri_cap}), pairs "
+        f"{int(s['pair_count'])}/{cfg.pair_capacity} (late {cfg.late_pair_cap}), class demand "
+        f"{s['pair_demand_vec'].tolist()} (giant capacity {cfg.giant_capacity}), pair drops "
+        f"{s['pair_drop_vec'].tolist()} | the reference: {CITY_REFERENCE}")
+    compare_kernels("city ", "transitional frame 1", path["transitional"], ds, path["params"], cfg, setup,
+                    raster_tile)
+    rows = compare_kernels("city ", "steady frame 4", path["steady"], ds, path["params"], cfg, setup, raster_tile)
+    for r in rows:
+        kernels[r["name"]]["city_path"] = side_row(r, path["launches"][r["name"]])
+    profile_frames("city profile", lambda st, i: frame.render_frame(ds, st, path["params"], path["sp"], cfg,
+                                                                   textures=tex)[2], path["state"])
+    return kernels
 
 
-def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi) -> dict:
+def side_row(r: dict, launches: int) -> dict:
+    """A kernel's numbers on another path, kept inside its main row."""
+    keys = ("ms", "baseline_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    return dict({k: r[k] for k in keys if k in r}, launches=launches)
+
+
+def _timed(secs: dict, name: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    secs[name] = round(time.perf_counter() - t0, 2)
+    return out
+
+
+def cook_city(out_dir: str, params: dict) -> dict:
+    """Generate (or reuse) the city's .glb and DDS set and cook it cold
+    into its scene cache (a cache from an earlier run on this disk is
+    removed first).  Returns the seconds of each step."""
+    from niagara_tpu_torch.cooker import gltf, synth_city
+
+    secs = {}
+    glb = _timed(secs, "generate", synth_city.ensure_city, out_dir, **params)
+    for f in os.listdir(out_dir):
+        if f.endswith(".scene.npz"):
+            os.remove(os.path.join(out_dir, f))
+    _timed(secs, "cook (cold)", gltf.load_scene, glb, cache_dir=out_dir)
+    return secs
+
+
+def prepare_city(out_dir: str, params: dict, cook_pool=None) -> dict:
+    """The procedural city through the port's content path, on the host:
+    `cook_city` (in `cook_pool`'s process when given, so that its Python
+    does not hold this process's interpreter lock while the paths on the
+    card run), then the scene from the cache the cold cook wrote, the
+    textures decoded (none may fall back to magenta), the opacity masks
+    baked, the texture table and the numpy device layout built.  Returns
+    the SceneData, the table, the layout and the seconds of each step."""
+    from niagara_tpu_torch import scene
+    from niagara_tpu_torch.cooker import gltf, opacity
+    from niagara_tpu_torch.render import textures
+
+    secs = cook_pool.submit(cook_city, out_dir, params).result() if cook_pool else cook_city(out_dir, params)
+    step = functools.partial(_timed, secs)
+    sd = step("cook (cached)", gltf.load_scene, os.path.join(out_dir, "city.glb"), cache_dir=out_dir)
+    mips, substituted = step("decode", textures.load_texture_mips, sd.texture_paths, base_dir=out_dir)
+    check(not substituted, f"{len(substituted)} city textures failed to decode: {substituted[:5]}")
+    masks = step("bake", opacity.bake_opacity, sd.geometry, sd.draws, sd.materials, mips)
+    table = step("table", textures.build_texture_table, mips)
+    np_scene = step("layout", scene.upload, sd.geometry, sd.draws, sd.materials, masks, texture_table=table)
+    return dict(sd=sd, table=table, scene=np_scene, seconds=secs)
+
+
+def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=None, sun_direction=None) -> dict:
     """Two cold frames, then three steady ones with the launch counters at
-    zero: each loss-free and finite, the counters as `expected`.  Returns
-    the inputs kept from frames 1 and 4, the launches, the state after
-    frame 4 and the frame inputs."""
+    zero: each loss-free and finite, the counters as `expected`.  `cam` and
+    `sun_direction` default to the headline frame's.  Returns the inputs
+    kept from frames 1 and 4, the launches, frame 4's stats, the state
+    after frame 4 and the frame inputs."""
     import torch
 
-    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    params, sp = frame.make_frame_inputs(cam or camera.Camera(), camera.RenderSettings(), cfg,
+                                         sun_direction=sun_direction)
     # from a cold state frame 0's early pass has nothing (no draw was visible
     # before) and its late pass takes the whole unoccluded set -- the camera-
     # cut case the late budgets are not sized for (reference frame.py:85-89:
@@ -401,20 +568,23 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi) -> di
     log(f"{tag}main", f"launches {launches} (expected {expected}); frame ms {frame_ms} on {smi}")
     log(f"{tag}main", f"frame 4 per pass: {pass_line(steady)}")
     check(launches == expected, "kernel launch counts")
-    return dict(transitional=transitional, steady=steady, launches=launches, state=state, params=params, sp=sp)
+    return dict(transitional=transitional, steady=steady, launches=launches, stats=s, state=state, params=params,
+                sp=sp)
 
 
-def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame) -> None:
+def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=None, sun_direction=None) -> None:
     """256x128, two frames: kernels on the card vs the plain path on the
-    CPU.  With a texture table (the alpha scene) the masks must discard:
-    with them cleared the same frame covers other pixels."""
+    CPU, from `cam` (default: the headline camera).  With a texture table
+    (an alpha-classed scene) the masks must discard: with them cleared the
+    same frame covers other pixels."""
     import dataclasses
 
     import torch
 
     from niagara_tpu_torch.render import textures
 
-    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    params, sp = frame.make_frame_inputs(cam or camera.Camera(), camera.RenderSettings(), cfg,
+                                         sun_direction=sun_direction)
     runs = {}
     for where in ("cpu", dev):
         sc = scene.from_numpy(np_scene, where)
@@ -817,8 +987,8 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
               "image not finite")
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
-    expected = {"setup": 0, "setup_alpha": 6, "raster": 3, "raster_alpha": 3, "raster_window": 0,
-                "raster_alpha_window": 3, "shade": 3}
+    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=3, shade=3,
+                    **BLOOM_LAUNCHES)
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")
     check(launches == expected, "kernel launch counts")
@@ -868,6 +1038,121 @@ def compare_window(tag, sun, raster_tile, base=None) -> dict:
     return row
 
 
+def compare_bloom(tag, g0, width: int, height: int, bloom, _build) -> list[dict]:
+    """bloom.cu's kernels on a frame's g0 with its emissive channel replaced
+    by seeded nonzero values: each level against its plain version on the
+    same input, bit for bit (through .view(torch.int32)), then the whole
+    chain and the expansion; per-frame times (all levels), bounds and the
+    library yardsticks; one bloom a frame under the profiler."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=g0.device).manual_seed(6)
+    g0 = g0.clone()
+    g0[..., 3] = torch.rand(g0.shape[:2], generator=gen, device=g0.device) * 0.6 + 0.05
+    mips = [bloom.extract_emissive(g0, width, height)]
+    levels = bloom.bloom_levels(width, height)
+    for _ in range(1, levels):
+        mips.append(bloom._down2(mips[-1]))
+    rows = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, library_err=0.0) for k in BLOOM_OPS}
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def level(name, kernel, plain, library, nbytes, outputs):
+        k, p = kernel(), plain()
+        check(torch.equal(bits(k), bits(p)), f"{name}: not bit for bit on {tuple(p.shape)}")
+        lib = library()
+        r = rows[name]
+        r["library_err"] = max(r["library_err"], float((lib.reshape(p.shape) - p).abs().max() / p.abs().max()))
+        r["ms"] += cuda_ms(kernel, 20)
+        r["plain_ms"] += cuda_ms(plain, 5)
+        r["library_ms"] += cuda_ms(library, 20)
+        r["bytes"] += nbytes
+        r["ops"] += BLOOM_OPS[name] * outputs
+        return p
+
+    # the library yardsticks compute the same functions in full f32 (no
+    # TF32) from the same level, the edge padding (F.pad replicate) timed
+    # with them: conv2d (6x6, stride 2) down, conv_transpose2d (8x8, stride
+    # 2) plus the accumulate up, bilinear interpolate x2
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        wdown = torch.tensor(bloom._DOWN_K, dtype=torch.float32, device=g0.device).expand(3, 1, 6, 6).contiguous()
+        wup = torch.zeros((8, 8), dtype=torch.float64)
+        for (py, px), k in bloom._UP_K.items():
+            for j in range(4):
+                for i in range(4):
+                    wup[7 - py - 2 * j, 7 - px - 2 * i] = float(k[py + j, px + i])
+        wup = wup.to(torch.float32).to(g0.device).expand(3, 1, 8, 8).contiguous()
+        for src in mips[:-1]:
+            _, h, w = src.shape
+            oh, ow = (h + 1) // 2, (w + 1) // 2
+            pad = (2, 2 * ow - w + 4, 2, 2 * oh - h + 4)
+            level("bloom_down", lambda: bloom.down2_cuda(src), lambda: bloom._down2(src),
+                  lambda: F.conv2d(F.pad(src[None], pad, mode="replicate"), wdown, stride=2,
+                                   groups=3)[..., :oh, :ow],
+                  src.numel() * 4 + 3 * oh * ow * 4, 3 * oh * ow)
+        acc = mips[-1]
+        for mip in mips[-2::-1]:
+            _, h, w = acc.shape
+            _, oh, ow = mip.shape
+            src = acc
+            acc = level("bloom_up", lambda: bloom.up2_add_cuda(src, mip), lambda: bloom.up2_add_plain(src, mip),
+                        lambda: mip + F.conv_transpose2d(F.pad(src[None], (2, 2, 2, 2), mode="replicate"), wup,
+                                                         stride=2, groups=3)[0, :, 7:7 + oh, 7:7 + ow],
+                        src.numel() * 4 + 2 * mip.numel() * 4, mip.numel())
+        level("bloom_x2", lambda: bloom.bilinear_x2_cuda(acc, height, width),
+              lambda: bloom._bilinear_x2(acc, height, width).permute(1, 2, 0),
+              lambda: F.interpolate(acc[None], size=(height, width), mode="bilinear",
+                                    align_corners=False)[0].permute(1, 2, 0),
+              acc.numel() * 4 + 3 * height * width * 4, 3 * height * width)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+    half = bloom.compute_bloom(g0, width, height)
+    plain_half = bloom.bloom_chain(g0, width, height, bloom._down2, bloom.up2_add_plain)
+    check(torch.equal(bits(half), bits(plain_half)), "compute_bloom: kernel path differs from the plain chain")
+    full = bloom.sample_bloom_fullres(half, width, height)
+    check(torch.equal(bits(full), bits(bloom._bilinear_x2(plain_half, height, width).permute(1, 2, 0))),
+          "sample_bloom_fullres: kernel differs from the plain expansion")
+    check(bool((half > 0).all()), "the bloom of a nonzero emissive is not positive")
+    log(tag, f"g0 {tuple(g0.shape)} with seeded emissive, {levels} levels "
+        f"{[tuple(m.shape[1:]) for m in mips]}: every level of bloom_down/bloom_up/bloom_x2 equals its plain version "
+        f"bit for bit, compute_bloom and sample_bloom_fullres equal the plain chain bit for bit (max_abs_err 0); "
+        f"bloom mean {float(full.mean()):.4g}")
+
+    # one bloom (chain + expansion) under the profiler: its launches, device
+    # time, and that only bloom.cu's kernels and the extract's ops run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            bloom.sample_bloom_fullres(bloom.compute_bloom(g0, width, height), width, height)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in device if "bloom_" in e.name]
+    log(tag, f"one bloom a frame (profiler, 5 calls): {len(device) / 5:.0f} device ops of which {len(ours) / 5:.0f} "
+        f"bloom.cu launches, {sum(e.time_range.elapsed_us() for e in device) / 5e3:.4f} ms device time "
+        f"({sum(e.time_range.elapsed_us() for e in ours) / 5e3:.4f} ms in bloom.cu); the rest is the plain extract")
+    check(len(ours) == 5 * (2 * levels - 1), "the bloom chain did not run on bloom.cu's kernels")
+
+    out = []
+    for name, r in rows.items():
+        check(r["library_err"] < 1e-5, f"{name}: the library yardstick computes another function")
+        bms, by = bound(r["bytes"], r["ops"])
+        log(tag, f"{name}: kernel {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms vs library {r['library_ms']:.4f} ms "
+            f"(relative difference {r['library_err']:.2g}) per frame, bound {bms:.5f} ms by {by} "
+            f"({r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} Mop), share {bms / r['ms']:.1%}, max_abs_err 0.0")
+        out.append(dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/bloom.cu",
+                        replaces=BLOOM_REPLACES[name], max_abs_err=0.0, ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
+    return out
+
+
 def profile_frames(tag, step, state, n: int = 5) -> None:
     """torch.profiler over n chained frames, `step(state, i)` rendering
     frame i and returning the next state: device ops and kernel launches
@@ -901,6 +1186,9 @@ def profile_frames(tag, step, state, n: int = 5) -> None:
         f"{len(device) / n:.0f} device ops/frame, {len(launch) / n:.0f} kernel launches/frame "
         f"({sum(e.time_range.elapsed_us() for e in launch) / 1e3 / n:.3f} ms host), device busy "
         f"{busy / 1e3 / n:.3f} ms/frame, device idle share {1 - busy / wall_us:.3f}")
+    blooms = {k: v for k, v in by_name.items() if "bloom_" in k}
+    n_bloom = sum(1 for e in device if "bloom_" in e.name)
+    log(tag, f"bloom.cu: {n_bloom / n:.0f} launches/frame, {sum(blooms.values()) / 1e3 / n:.4f} ms/frame device")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(tag, f"{us / 1e3 / n:9.4f} ms/frame  {name[:110]}")
 

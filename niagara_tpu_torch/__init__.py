@@ -11,6 +11,6 @@ a mirror here, held equal to its original by tests/test_torch_*.py
 
 Layout mirrors the JAX package so each counterpart is found by name:
 `scene.py`, `cooker/`, `ops/`, `render/`; the hand-written CUDA kernels
-(setup and tile raster, each with an alpha variant, and shade) live in
-`csrc/` and are built by `_build.py`.
+(setup and tile raster, each with an alpha variant, shade, and the bloom
+chain's three filters) live in `csrc/` and are built by `_build.py`.
 """

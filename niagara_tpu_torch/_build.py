@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("setup.cu", "raster.cu", "shade.cu")
+SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu")
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
@@ -39,9 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # one count per kernel variant: setup / setup_alpha and raster / raster_alpha
 # are the two static instances of setup.cu's and raster.cu's kernels;
 # raster_window / raster_alpha_window count the same instances launched on a
-# band of tile rows (the row_window variant, the sun map's band update)
+# band of tile rows (the row_window variant, the sun map's band update);
+# bloom_down / bloom_up / bloom_x2 are bloom.cu's three filters
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
-            "raster_alpha_window": 0, "shade": 0}
+            "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_x2": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
@@ -68,6 +69,24 @@ class ShadeStreams(ctypes.Structure):
                 ("off", ctypes.c_int * SHADE_STREAMS), ("n", ctypes.c_int)]
 
 
+class DownWeights(ctypes.Structure):
+    """Mirror of `struct DownWeights` in csrc/bloom.cu: the 6x6 stencil."""
+
+    _fields_ = [("w", ctypes.c_float * 36)]
+
+
+class UpWeights(ctypes.Structure):
+    """Mirror of `struct UpWeights` in csrc/bloom.cu: four 4x4 phase stencils."""
+
+    _fields_ = [("w", ctypes.c_float * 64)]
+
+
+class X2Weights(ctypes.Structure):
+    """Mirror of `struct X2Weights` in csrc/bloom.cu: four 2x2 phase stencils."""
+
+    _fields_ = [("w", ctypes.c_float * 16)]
+
+
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
     # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
@@ -79,6 +98,12 @@ _SIGNATURES = {
     "raster_launch": [P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P],
     # vis, width, height, streams, attr, stream
     "shade_launch": [P, I, I, ShadeStreams, P, P],
+    # src, c, h, w, out, weights, stream
+    "bloom_down_launch": [P, I, I, I, P, DownWeights, P],
+    # src, c, h, w, mip, out, oh, ow, weights, stream
+    "bloom_up_launch": [P, I, I, I, P, P, I, I, UpWeights, P],
+    # src, c, h, w, out, oh, ow, weights, stream
+    "bloom_x2_launch": [P, I, I, I, P, I, I, X2Weights, P],
 }
 
 

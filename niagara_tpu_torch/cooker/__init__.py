@@ -1,7 +1,10 @@
 """Scene cooking and synthetic scenes, JAX-free (mirrors niagara_tpu/cooker/):
 `cook` (OBJ -> C++ cooker -> Geometry, the procedural stand-in mesh),
 `synth` (draw scatter, small scene, planar uvs, materials), `opacity`
-(opacity-mask bake), `bindings` (ctypes to the C++ cooker in native/).
+(opacity-mask bake), `gltf` (glTF/.glb loader and scene cache),
+`meshopt_codec` and `synth_city` (copies: EXT_meshopt_compression codecs,
+the procedural street-canyon city), `bindings` (ctypes to the C++ cooker
+and DDS decoder in native/).
 """
 
 from .cook import CACHE_DIR, DIAMETER, assemble, cook_obj_meshes, cook_procedural, procedural_mesh, procedural_obj

@@ -1,11 +1,12 @@
 """ctypes bindings for the port's C++ cooker (native/, a copy of the
-reference's cook path).
+reference's cook path and DDS decoder).
 
 The library is built by g++ at first use into niagara_tpu_torch/build/,
 under a name carrying the hash of the sources and flags, so a changed
 source rebuilds it and nothing is written outside the port's build
 directory.  The dtypes and structures mirror native/cooker.h (and
-niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` these are).
+niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` / `load_dds`
+these are).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(_HERE, "native")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
-SOURCES = ("cooker.cpp", "meshlet.cpp", "simplify.cpp")
+SOURCES = ("cooker.cpp", "meshlet.cpp", "simplify.cpp", "textures.cpp", "bc7.cpp", "bc6h.cpp")
 HEADERS = ("cooker.h", "half.h")
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
@@ -97,6 +98,9 @@ def get_lib() -> ctypes.CDLL:
             lib.ck_cook_mesh.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint32,
                                          ctypes.c_float, ctypes.c_int]
             lib.ck_free_cooked.argtypes = [ctypes.POINTER(_CkCooked)]
+            lib.ck_load_dds.restype = ctypes.POINTER(ctypes.c_uint8)
+            lib.ck_load_dds.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+            lib.ck_free_rgba.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
 
@@ -151,3 +155,25 @@ def cook_mesh(vertices: np.ndarray, indices: np.ndarray, max_scale: float = 1.0,
     }
     lib.ck_free_cooked(cooked)
     return result
+
+
+def load_dds(path: str) -> tuple[list[np.ndarray], int]:
+    """Decode a DDS texture (BC1-5, BC6H, BC7 or RGBA8) to RGBA8 mips
+    (bindings.py:364).  Returns (mips: list of [h,w,4] uint8, format 1..9)."""
+    lib = get_lib()
+    info = np.zeros(4, dtype=np.uint32)
+    ptr = lib.ck_load_dds(path.encode(), ctypes.c_void_p(info.ctypes.data))
+    if not ptr:
+        raise IOError(f"failed to load DDS (unsupported format?): {path}")
+    w, h, levels, fmt = (int(v) for v in info)
+    dims = []
+    for _ in range(levels):
+        dims.append((h, w))
+        w, h = max(w // 2, 1), max(h // 2, 1)
+    flat = _read(ptr, sum(a * b for a, b in dims) * 4, np.dtype(np.uint8))
+    lib.ck_free_rgba(ptr)
+    out, off = [], 0
+    for mh, mw in dims:
+        out.append(flat[off * 4:(off + mw * mh) * 4].reshape(mh, mw, 4))
+        off += mw * mh
+    return out, fmt

@@ -6,6 +6,9 @@
 * `procedural_obj` writes the port's stand-in mesh: a closed, non-convex,
   seeded noise-displaced thin torus with smooth normals (57,344
   triangles), so the port needs no external asset.
+* `CACHE_VERSION`, `_hash_file_meta` and `_geometry_to_dict` /
+  `_geometry_from_dict` (cook.py:20-27, 152-181) serve the glTF scene
+  cache (cooker/gltf.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,32 @@ from ..utils import math3d
 from . import bindings
 
 CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cache")
+CACHE_VERSION = 3
+
+
+def _hash_file_meta(path: str) -> int:
+    """mtime xor size hash of a source file (cook.py:23)."""
+    st = os.stat(path)
+    return (int(st.st_mtime_ns) ^ (st.st_size << 32)) & 0xFFFFFFFFFFFFFFFF
+
+
+def _geometry_to_dict(g: Geometry) -> dict:
+    """Geometry as flat named arrays (cook.py:152)."""
+    out = {"vpos": g.vpos, "vnorm": g.vnorm, "vtan": g.vtan, "vuv": g.vuv, "indices": g.indices,
+           "meshlet_data": g.meshlet_data}
+    out.update({f"ml_{k}": v for k, v in vars(g.meshlets).items()})
+    out.update({f"me_{k}": v for k, v in vars(g.meshes).items()})
+    return out
+
+
+def _geometry_from_dict(d: dict) -> Geometry:
+    """Inverse of `_geometry_to_dict` (cook.py:168)."""
+    return Geometry(
+        vpos=d["vpos"], vnorm=d["vnorm"], vtan=d["vtan"], vuv=d["vuv"], indices=d["indices"],
+        meshlet_data=d["meshlet_data"],
+        meshlets=Meshlets(**{k[3:]: d[k] for k in d if k.startswith("ml_")}),
+        meshes=Meshes(**{k[3:]: d[k] for k in d if k.startswith("me_")}),
+    )
 
 
 def assemble(meshes_cooked: list[dict]) -> Geometry:

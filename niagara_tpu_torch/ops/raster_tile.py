@@ -31,13 +31,17 @@ from .setup import REC
 SMALL_TX, SMALL_TY = 2, 3
 MIDA_TX, MIDA_TY = 5, 8
 MID_TX, MID_TY = 15, 32
+# the giant class's default budget (triangles past the midB footprint; each
+# slot emits a pair for every tile): street-level scenes raise it
+# (presets.scene_capacities)
+GIANT_CAPACITY = 64
 
 ATTR_CHANNELS = 13  # nx ny nz u v viewz draw mat post vid0 vid1 vid2 duv
 
 
 def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
                mid_capacity: int | None = None, small_capacity: int | None = None,
-               midb_capacity: int | None = None, giant_capacity: int = 64,
+               midb_capacity: int | None = None, giant_capacity: int = GIANT_CAPACITY,
                tiny2_capacity: int | None = None, row_window: tuple[int, int] | None = None) -> dict:
     """Tile-sorted (tile, tri) pairs.  Returns dict(pair_tri [P], tile_start
     [n_tiles+1], pair_count, dropped, drop_vec [6] -- class overflow per
@@ -143,11 +147,12 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
 
 def rasterize_tiles(setup: dict, depth, vis, *, tiles_x: int, tiles_y: int, pair_capacity: int,
                     frag_offset: int = 0, class_caps: tuple | None = None, alpha_test: bool = False,
-                    row_window: tuple[int, int] | None = None):
+                    row_window: tuple[int, int] | None = None, giant_capacity: int = GIANT_CAPACITY):
     """Rasterize set-up triangles onto depth/vis [H, W].  `class_caps` =
     (tiny2, small, midA, midB) pair-class budgets or None for emit_pairs'
-    defaults; `alpha_test` runs the kernel's alpha variant (records with an
-    opacity mask, cols 48-55, discard the pixels of clear mask cells).
+    defaults, `giant_capacity` the giant class's; `alpha_test` runs the
+    kernel's alpha variant (records with an opacity mask, cols 48-55,
+    discard the pixels of clear mask cells).
     `row_window=(row0, n_rows)` renders only those tile rows of the
     tiles_x x tiles_y grid (raster_tile.py:519-547): depth/vis are then the
     band's [n_rows * 8, W] rows, and coverage is computed at full-grid
@@ -156,7 +161,7 @@ def rasterize_tiles(setup: dict, depth, vis, *, tiles_x: int, tiles_y: int, pair
     `stream`, the record stream `shade_tiles` resolves attributes from."""
     cc = dict(zip(("tiny2_capacity", "small_capacity", "mid_capacity", "midb_capacity"), class_caps or ()))
     pairs = emit_pairs(setup, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=pair_capacity, row_window=row_window,
-                       **cc)
+                       giant_capacity=giant_capacity, **cc)
     args = (pairs["tile_start"], pairs["pair_tri"], setup["rec"], frag_offset, depth, vis, tiles_x)
     raster = raster_plain if depth.device.type == "cpu" else raster_cuda
     depth, vis = raster(*args, alpha_test=alpha_test, band_row0=row_window[0] if row_window else None)

@@ -3,9 +3,9 @@
 here one gather), texture sampling (`_sample_materials` :173,
 albedo/specular/emissive slots) and the shade-time alpha discard
 (:319); `_lit_color` (:378) and `composite` (:420) with the sun-map
-shadow term (:415-416, 444).  Not ported yet: bloom and the transmission
-layer.  Normal maps (slot 1, the screen-space tangent frame) are not
-ported: a scene whose materials carry one raises.
+shadow term (:415-416, 444) and the bloom term (:451-452).  Not ported
+yet: the transmission layer.  Normal maps (slot 1, the screen-space
+tangent frame) are not ported: a scene whose materials carry one raises.
 """
 
 from __future__ import annotations
@@ -71,11 +71,20 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
     else:
         albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
     emissivef = cullmath.dot3(emissive, _LUM) / (cullmath.dot3(albedo[..., :3], _LUM) + 1e-3)
-    g0 = torch.cat([cullmath.to_srgb(albedo[..., :3]), (torch.log2(1.0 + emissivef) / 5.0)[..., None]], dim=-1)
+    g0 = torch.cat([cullmath.to_srgb(albedo[..., :3]), cullmath.div(torch.log2(1.0 + emissivef), 5.0)[..., None]],
+                   dim=-1)
     g1 = torch.cat([cullmath.oct_encode(nrm) * 0.5 + 0.5, specgloss[..., 3:4],
                     torch.zeros_like(specgloss[..., :1])], dim=-1)
     v4 = valid[..., None]
     return torch.where(v4, g0, 0.0), torch.where(v4, g1, 0.0), valid
+
+
+def ndc_planes(width: int, height: int, device):
+    """NDC x [W] and y [H] of the pixel centers (shade.py:390-393), each
+    through one IEEE division on every device."""
+    x = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+    y = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    return cullmath.div(x, float(width)) * 2.0 - 1.0, 1.0 - cullmath.div(y, float(height)) * 2.0
 
 
 def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_projection,
@@ -90,8 +99,8 @@ def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_pr
     ndotl = torch.clamp_min(cullmath.dot3(normal, sun), 0.0)
 
     # world position from reverse-Z depth
-    ndc_x = ((torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0)[None, :]
-    ndc_y = (1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0)[:, None]
+    ndc_x, ndc_y = ndc_planes(width, height, dev)
+    ndc_x, ndc_y = ndc_x[None, :], ndc_y[:, None]
     ivp = inverse_view_projection
     clip = (ndc_x.expand(depth.shape), ndc_y.expand(depth.shape), depth)
     wposh = [clip[0] * float(ivp[i, 0]) + clip[1] * float(ivp[i, 1]) + clip[2] * float(ivp[i, 2])
@@ -118,12 +127,15 @@ def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_pr
 
 
 def composite(g0, g1, depth, valid, *, camera_position, sun_direction, inverse_view_projection,
-              width: int, height: int, shadow=None):
+              width: int, height: int, shadow=None, bloom=None):
     """G-buffer -> tonemapped, debanded image [H,W,3] (shade.py:420);
-    `shadow` is the sun's shadow term [H, W] or None (unshadowed)."""
+    `shadow` is the sun's shadow term [H, W] or None (unshadowed), `bloom`
+    the full-resolution bloom [H, W, 3] or None."""
     color = _lit_color(g0, g1, depth, camera_position=camera_position, sun_direction=sun_direction,
                        inverse_view_projection=inverse_view_projection, width=width, height=height,
                        shadow_term=shadow)
+    if bloom is not None:
+        color = color + bloom * 0.1
     color = torch.where(valid[..., None], color, 0.0)
     dev = depth.device
     xy = torch.stack([

@@ -12,9 +12,11 @@ alpha-test class (postPass 1), which the late pass culls together with
 class 0 and rasterizes in one merged stream through the raster kernel's
 alpha_test variant (class group (0, 1), frame.py:135-143, 367-429); a scene
 with opacity masks runs the setup kernel's alpha variant.  `render_frame`
-samples textures when given a table, and with `FrameConfig.shadows` and a
-sun map (`sun`, ops/sunmap.py) resolves and blurs the sun's shadow term.
-Not ported yet: bloom, the transmission layer (post_passes=3) and the
+samples textures when given a table, with `FrameConfig.shadows` and a
+sun map (`sun`, ops/sunmap.py) resolves and blurs the sun's shadow term,
+and with `FrameConfig.bloom` (the default, as the reference's) adds the
+bloom chain of the G-buffer's emissive (ops/bloom.py) to the composite.
+Not ported yet: the transmission layer (post_passes=3) and the
 ray-traced (BVH) shadows.  Fragment ids: early records are
 [0, tri_capacity), late records tri_capacity + [0, late_tri_capacity)
 (frame.py:389).
@@ -30,7 +32,7 @@ import torch
 from ..config import TILE_H, TILE_W
 from ..utils import math3d
 
-from ..ops import cull, pyramid, raster, raster_tile, setup, shade, sunmap
+from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
 from .camera import Camera, RenderSettings, make_cull_params
 
@@ -61,6 +63,10 @@ class FrameConfig:
     # (tiny2, small, midA, midB) pair-emission class budgets; None derives
     # them from the pass's tri capacity (emit_pairs)
     pair_class_caps: tuple | None = None
+    # the giant pair class's budget (raster_tile.GIANT_CAPACITY)
+    giant_capacity: int = raster_tile.GIANT_CAPACITY
+    # the bloom chain of the emissive G-buffer, added to the composite
+    bloom: bool = True
     # draw classes: 1 = opaque only; 2 adds the alpha-test class
     post_passes: int = 1
     # sun-map shadows (render_frame's `sun`), blurred by the depth-aware
@@ -182,7 +188,8 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     levels, ph, pw = cfg.pyramid_levels_shape
     pyr_hw = (ph, pw)
     tiles_x, tiles_y = cfg.width // TILE_W, cfg.height // TILE_H
-    raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps)
+    raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps,
+                     giant_capacity=cfg.giant_capacity)
 
     # early pass: last frame's visible draws and clusters
     empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
@@ -249,11 +256,16 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     pack_sun_map or pack_band -- shadows the sun light through the packed
     resolve at half resolution (frame.py:647-663, where the 3-tuple rides
     in `bvh`); without a map the frame is unshadowed, as the reference's.
-    `capture` receives frame_core's kernel inputs and the shadow term
-    ("shadow", None when unshadowed).  Returns (image [H,W,3], fb,
-    new_state, stats)."""
+    With `cfg.bloom` the bloom of the masked g0 joins the composite
+    (frame.py:643-646).  `capture` receives frame_core's kernel inputs, g0
+    ("g0") and the shadow term ("shadow", None when unshadowed).  Returns
+    (image [H,W,3], fb, new_state, stats)."""
     fb, new_state, stats, attrs = frame_core(scene, state, params, cfg, capture=capture)
     g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures)
+    bloom_img = None
+    if cfg.bloom:
+        bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
+                                               cfg.height)
     shadow = None
     if cfg.shadows and sun is not None:
         sf, packed, map_shape = sun
@@ -261,12 +273,12 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
             fb.depth, sf, None, inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width,
             height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
     if capture is not None:
-        capture["shadow"] = shadow
+        capture.update(g0=g0, shadow=shadow)
     image = shade.composite(
         g0, g1, fb.depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
         inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width, height=cfg.height,
-        shadow=shadow,
+        shadow=shadow, bloom=bloom_img,
     )
     return image, fb, new_state, stats
 

@@ -1,6 +1,10 @@
-"""Capacity policy of the headline frame (niagara_tpu/render/presets.py)."""
+"""Capacity policies (niagara_tpu/render/presets.py): the 1M-draw headline
+frame's, the sun map's per-frame update's, the small test frame's, and
+`scene_capacities` for cooked scenes such as the glTF city."""
 
 from __future__ import annotations
+
+import numpy as np
 
 
 # pair-emission class budgets (tiny2, small, midA, midB) of the 1M-draw
@@ -84,4 +88,42 @@ def small_capacities() -> dict:
         candidate_capacity=1 << 12, late_candidate_capacity=1 << 12,
         pair_capacity=1 << 15, tri_capacity=1 << 15,
         late_cluster_capacity=1 << 10, late_tri_capacity=1 << 13,
+    )
+
+
+def scene_capacities(geometry, draws) -> dict:
+    """Data-driven budgets of a cooked scene (presets.py:115): emitted draws
+    bounded by the draw count and clusters by the sum over draws of their
+    finest LOD's meshlets (`total`); triangles 4x and pairs 2x that in the
+    hard-bound window, clamped to measured demand with headroom in the
+    mid-size one (the city); the giant pair class scaled with the scene.
+    Scenes past the mid-size window take the headline budgets.  Keys are
+    FrameConfig fields, `giant_capacity` among them."""
+    lod0 = geometry.meshes.lod_meshlet_count[:, 0]
+    total = int(lod0[np.asarray(draws.mesh_index)].sum())
+    if draws.count > 300_000 or total > (1 << 19):
+        return headline_capacities(draws.count)
+
+    def p2(x, lo, hi=1 << 30):
+        return min(hi, max(lo, 1 << (max(int(x), 1) - 1).bit_length()))
+
+    cluster = p2(total, 1 << 12)
+    if total <= (1 << 17):
+        cand = cluster
+        tri = p2(4 * total, 1 << 14, 1 << 19)
+    else:
+        cand = min(cluster, 1 << 17)
+        cluster = min(cluster, 1 << 15)
+        tri = 1 << 17
+    return dict(
+        cmd_capacity=p2(draws.count, 1 << 12),
+        cluster_capacity=cluster,
+        candidate_capacity=cand,
+        late_candidate_capacity=cand,
+        late_cluster_capacity=max(1 << 12, cluster // 2),
+        tri_capacity=tri,
+        late_tri_capacity=max(1 << 14, tri // 2),
+        pair_capacity=2 * tri,
+        late_pair_capacity=max(1 << 15, tri),
+        giant_capacity=p2(total // 256, 128, 256),
     )

@@ -2,6 +2,7 @@
 
 Every texture's RGBA8 mip chain is packed into one flat texel pool;
 sampling is address arithmetic plus gathers over the [H,W] shading grid.
+`load_texture_mips` decodes DDS files through the port's C++ cooker (:50);
 `build_texture_table` builds the table on the host in numpy (:72, from
 pre-decoded mips); `to_device` moves it to a device; `sample` (:205) and
 `select_mip_from_area` (:281) run on tensors.  Texel indices are integers
@@ -12,10 +13,14 @@ op order.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..cooker import bindings
 
 MAX_MIPS = 14
 
@@ -61,6 +66,25 @@ def _conforming(chain: list) -> list:
             broke = True
             out.append(_halve(out[-1]))
     return out
+
+
+def load_texture_mips(paths: list[str], base_dir: str = "") -> tuple[list, list]:
+    """Decode each DDS into its RGBA8 mip list (textures.py:50); a file that
+    fails to decode becomes 1x1 magenta, with a warning.  Returns (mips,
+    substituted): the lists that feed `build_texture_table` and the opacity
+    bake, and the paths that were replaced by magenta, so a caller can
+    refuse a scene with any."""
+    out, substituted = [], []
+    for p in paths:
+        full = os.path.join(base_dir, p) if base_dir else p
+        try:
+            mips, _fmt = bindings.load_dds(full)
+        except OSError as e:
+            print(f"[textures] WARNING: {full}: {e} -- using 1x1 magenta", file=sys.stderr)
+            mips = [np.tile(np.array([255, 0, 255, 255], np.uint8), (1, 1, 1))]
+            substituted.append(full)
+        out.append(mips[:MAX_MIPS])
+    return out, substituted
 
 
 def build_texture_table(mips: list, budget_bytes: int | None = 2 << 30,

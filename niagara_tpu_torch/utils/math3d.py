@@ -86,6 +86,30 @@ def image_mip_levels(width: int, height: int) -> int:
     return result
 
 
+def quantize_half(v: np.ndarray) -> np.ndarray:
+    """float32 -> float16 bit pattern as uint16 (round-to-nearest-even)."""
+    return np.asarray(v, dtype=np.float32).astype(np.float16).view(np.uint16)
+
+
+def quantize_snorm(v: np.ndarray, bits: int) -> np.ndarray:
+    """Signed-normalized quantization: clamp to [-1,1], scale by 2^(bits-1)-1,
+    round half away from zero.  Returns int32 in [-scale, scale]."""
+    scale = F((1 << (bits - 1)) - 1)
+    v = np.clip(np.asarray(v, dtype=F), F(-1), F(1))
+    round_ = np.where(v >= 0, F(0.5), F(-0.5))
+    return (v * scale + round_).astype(np.int32)
+
+
+def oct_encode(v: np.ndarray) -> np.ndarray:
+    """Octahedral encode of unit vectors [...,3] -> [...,2] in [-1,1]."""
+    v = np.asarray(v, dtype=F)
+    denom = np.abs(v[..., 0]) + np.abs(v[..., 1]) + np.abs(v[..., 2])
+    p = v[..., :2] / denom[..., None]
+    s = np.where(v[..., :2] >= 0, F(1), F(-1))
+    r = np.where((v[..., 2] <= 0)[..., None], (1.0 - np.abs(p[..., ::-1])) * s, p)
+    return r.astype(F)
+
+
 def dequantize_half(bits: np.ndarray) -> np.ndarray:
     return np.asarray(bits, dtype=np.uint16).view(np.float16).astype(np.float32)
 

@@ -42,7 +42,7 @@ INVALID = 0x7FFFFFFF
 def frames(tmp_path_factory):
     _, ds = parity_scene(tmp_path_factory.mktemp("mesh"))
     jcfg = jframe.FrameConfig(width=W, height=H, post_passes=1, bloom=False, raster_interpret=True, **CAPS)
-    tcfg = frame.FrameConfig(width=W, height=H, **CAPS)
+    tcfg = frame.FrameConfig(width=W, height=H, bloom=False, **CAPS)
     jp, jsp = jframe.make_frame_inputs(Camera(), RenderSettings(), jcfg)
     tp, tsp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), tcfg)
     tds = scene.from_numpy(ds, "cpu")
@@ -120,7 +120,7 @@ def test_frame_images_match(frames, i):
 def alpha_frames(tmp_path_factory):
     ds, table = alpha_parity_scene(tmp_path_factory.mktemp("mesh"))
     jcfg = jframe.FrameConfig(width=W, height=H, post_passes=2, bloom=False, raster_interpret=True, **CAPS)
-    tcfg = frame.FrameConfig(width=W, height=H, post_passes=2, **CAPS)
+    tcfg = frame.FrameConfig(width=W, height=H, post_passes=2, bloom=False, **CAPS)
     jp, jsp = jframe.make_frame_inputs(Camera(), RenderSettings(), jcfg)
     tp, tsp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), tcfg)
     tds = scene.from_numpy(ds, "cpu")

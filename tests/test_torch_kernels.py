@@ -12,7 +12,12 @@ boxes over many tiles and a band; setup with part-filled and wholly
 culled clusters, more triangles than capacity, an odd live cluster count
 and a single live cluster; shade with 1 to 4 seeded random record streams,
 ids in the gaps between them, uncovered pixels, degenerate records and a
-framebuffer one tile wide.
+framebuffer one tile wide.  The bloom kernels (csrc/bloom.cu) against
+their plain versions bit for bit on seeded nonzero inputs at odd sizes,
+and compute_bloom's kernel path against its plain path.  And the G-buffer
+and composite on the card against the CPU: the emissive channel's and the
+NDC planes' divisions bit for bit, the rest within 2e-6.  Animation
+playback on the card (its default device) against the CPU within 2e-6.
 
 Marked `cuda`: skipped where there is no GPU.  On a GPU machine (no JAX
 there, so without tests/conftest.py) run
@@ -25,8 +30,8 @@ import pytest
 import torch
 
 from niagara_tpu_torch import _build, cooker, scene
-from niagara_tpu_torch.ops import raster_tile, setup
-from niagara_tpu_torch.render import camera, frame, presets, textures
+from niagara_tpu_torch.ops import bloom, cullmath, raster_tile, setup, shade
+from niagara_tpu_torch.render import animation, camera, frame, presets, textures
 from test_torch_raster_box import crafted_setup, screen_triangles
 
 W, H = 256, 128
@@ -302,3 +307,128 @@ def test_setup_kernel_stress(captured, case):
     assert n > 0 and (int(ref["dropped"]) > 0) == (case == "over_capacity")
     if case == "all_culled":
         assert not (ref["tri_k"][:n] == live // 2).any()
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on an NVIDIA GPU")
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("h, w", [(37, 23), (38, 24), (1, 1), (2, 3), (540, 960)])
+def test_bloom_kernels_match_plain(h, w):
+    """One level of each filter on seeded nonzero [3, h, w] sources: down
+    to ((h+1)/2, (w+1)/2), up (plus a seeded finer mip) and the x2
+    expansion to (2h, 2w) and (2h-1, 2w-1); each launch counted."""
+    _need_cuda()
+    rng = np.random.default_rng(h * 1000 + w)
+    src = torch.as_tensor(rng.uniform(0.0, 8.0, (3, h, w)).astype(np.float32), device=DEV)
+    before = dict(_build.LAUNCHES)
+    assert torch.equal(_bits(bloom.down2_cuda(src)), _bits(bloom._down2(src)))
+    for oh, ow in [(2 * h, 2 * w), (max(2 * h - 1, 1), max(2 * w - 1, 1))]:
+        mip = torch.as_tensor(rng.uniform(0.0, 8.0, (3, oh, ow)).astype(np.float32), device=DEV)
+        assert torch.equal(_bits(bloom.up2_add_cuda(src, mip)), _bits(bloom.up2_add_plain(src, mip)))
+        got = bloom.bilinear_x2_cuda(src, oh, ow)
+        assert got.shape == (oh, ow, 3)
+        assert torch.equal(_bits(got), _bits(bloom._bilinear_x2(src, oh, ow).permute(1, 2, 0)))
+    assert {k: _build.LAUNCHES[k] - before[k] for k in ("bloom_down", "bloom_up", "bloom_x2")} == \
+        {"bloom_down": 1, "bloom_up": 2, "bloom_x2": 2}
+
+
+@pytest.mark.parametrize("h, w", [(128, 256), (23, 37)])
+def test_compute_bloom_kernel_path_matches_plain_path(h, w):
+    """The whole chain and the full-resolution expansion on a seeded g0
+    with nonzero emissive: the kernel path equals the plain filters on the
+    same card bit for bit (the extract is plain torch on both)."""
+    _need_cuda()
+    rng = np.random.default_rng(h + w)
+    g0 = torch.as_tensor(rng.uniform(0.0, 1.0, (h, w, 4)).astype(np.float32), device=DEV)
+    half = bloom.compute_bloom(g0, w, h)
+    assert torch.equal(_bits(half), _bits(bloom.bloom_chain(g0, w, h, bloom._down2, bloom.up2_add_plain)))
+    full = bloom.sample_bloom_fullres(half, w, h)
+    assert torch.equal(_bits(full), _bits(bloom._bilinear_x2(half, h, w).permute(1, 2, 0)))
+    assert bool((half > 0).all())
+
+
+def test_gbuffer_and_composite_divide_once_on_the_card(tmp_path):
+    """gbuffer_from_attrs + composite with nonzero emissive materials on the
+    card and on the CPU, same inputs.  g0's emissive channel equals the
+    CPU's one IEEE division of the card's own log2 (so the division is the
+    same single rounding), the NDC planes are bit-identical, and the whole
+    G-buffer and image (with bloom) lie within 2e-6: log2, pow and exp2
+    differ between the two math libraries."""
+    _need_cuda()
+    g = cooker.cook_procedural(str(tmp_path))
+    draws = cooker.small_scene_draws(g.meshes.count)
+    rng = np.random.default_rng(11)
+    nm = 5
+    materials = {"diffuse": rng.uniform(0.1, 1.0, (nm, 4)).astype(np.float32),
+                 "specular": rng.uniform(0.0, 1.0, (nm, 4)).astype(np.float32),
+                 "emissive": rng.uniform(0.0, 3.0, (nm, 3)).astype(np.float32)}
+    draws.material_index[:] = rng.integers(0, nm, draws.count)
+    np_scene = scene.upload(g, draws, materials)
+    nrm = rng.normal(size=(H, W, 3)).astype(np.float32)
+    attrs = np.concatenate([nrm, rng.uniform(0, 4, (H, W, 5)).astype(np.float32), np.zeros((H, W, 5), np.float32)],
+                           axis=-1)
+    attrs[..., 7] = rng.integers(0, nm, (H, W))
+    valid = rng.random((H, W)) < 0.8
+    depth = rng.uniform(0.01, 1.0, (H, W)).astype(np.float32)
+    cfg = frame.FrameConfig(width=W, height=H, **presets.small_capacities())
+    _, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    out = {}
+    for dev in ("cpu", DEV):
+        sc = scene.from_numpy(np_scene, dev)
+        a, v = torch.as_tensor(attrs, device=dev), torch.as_tensor(valid, device=dev)
+        g0, g1, vv = shade.gbuffer_from_attrs(a, v, sc)
+        b = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, W, H), W, H)
+        img = shade.composite(g0, g1, torch.as_tensor(depth, device=dev), vv, camera_position=sp.camera_position,
+                              sun_direction=sp.sun_direction, inverse_view_projection=sp.inverse_view_projection,
+                              width=W, height=H, bloom=b)
+        out[dev] = (g0, g1, vv, img, sc, a)
+    g0c, g1c, vc, imgc, _, _ = out["cpu"]
+    g0g, g1g, vg, imgg, sc, a = out[DEV]
+    assert torch.equal(vc, vg.cpu())
+    # the card's own emissive ratio and log2, divided once on the CPU
+    row = sc.mat_row[a[..., 7].to(torch.int64)]
+    lum = shade._LUM
+    emissivef = cullmath.dot3(row[..., 8:11], lum) / (cullmath.dot3(row[..., 0:3], lum) + 1e-3)
+    want = torch.where(vc, torch.log2(1.0 + emissivef).cpu() / 5.0, 0.0)
+    assert bool((want[vc] > 0).all())
+    assert torch.equal(_bits(g0g[..., 3].cpu()), _bits(want))
+    for cpu_plane, card_plane in zip(shade.ndc_planes(W, H, "cpu"), shade.ndc_planes(W, H, DEV)):
+        assert torch.equal(_bits(cpu_plane), _bits(card_plane.cpu()))
+    for x, y in ((g0c, g0g), (g1c, g1g), (imgc, imgg)):
+        assert float((x - y.cpu()).abs().max()) <= 2e-6
+
+
+def test_animation_on_the_card_matches_cpu(captured):
+    """evaluate on its default device (the card) and on the CPU for a
+    two-track table (one track starting late and wrapping, one rotating),
+    and apply_to_draws on the small scene's card tensors: the indices and
+    active flags equal, positions, scales and orientations within 2e-6
+    (sin and arccos differ between the two math libraries), untracked
+    draws untouched."""
+    tds = captured[0]
+    rot = np.array([[0, 0, 0, 1], [0, 0.3826834, 0, 0.9238795], [0, 0.7071068, 0, 0.7071068],
+                    [0, 0, 0.6, -0.8]], np.float32)
+    table = animation.AnimationTable(
+        draw_index=np.array([0, 1], np.int32), light_index=np.array([-1, -1], np.int32),
+        start_time=np.array([0.0, 0.4], np.float32), period=np.array([1 / 30, 0.25], np.float32),
+        key_offset=np.array([0, 3], np.int32), key_count=np.array([3, 4], np.int32),
+        key_translation=np.random.default_rng(3).normal(size=(7, 3)).astype(np.float32),
+        key_scale=np.array([1, 2, 1, 0.5, 1, 1.5, 2], np.float32),
+        key_rotation=np.concatenate([np.tile(np.array([[0, 0, 0, 1]], np.float32), (3, 1)), rot]))
+    for t in (0.0, 0.2, 0.55, 1.3, 7.77):
+        card, cpu = animation.evaluate(table, t), animation.evaluate(table, t, "cpu")
+        assert card[1].device.type == "cuda"
+        assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[4].cpu(), cpu[4])
+        for x, y in zip(card[1:4], cpu[1:4]):
+            assert float((x.cpu() - y).abs().max()) <= 2e-6
+        moved = animation.apply_to_draws(tds, table, t)
+        live = cpu[4].nonzero()[:, 0]
+        assert float((moved.draw_position[live].cpu() - cpu[1][live]).abs().max()) <= 2e-6
+        assert float((moved.draw_orientation[live].cpu() - cpu[3][live]).abs().max()) <= 2e-6
+        assert torch.equal(moved.draw_xform_row[2:], tds.draw_xform_row[2:])

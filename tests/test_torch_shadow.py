@@ -78,7 +78,7 @@ def frames(tmp_path_factory):
     ds, table = alpha_parity_scene(tmp_path_factory.mktemp("mesh"))
     jcfg = jframe.FrameConfig(width=W, height=H, post_passes=2, bloom=False, shadows=True, raster_interpret=True,
                               **CAPS)
-    tcfg = frame.FrameConfig(width=W, height=H, post_passes=2, shadows=True, **CAPS)
+    tcfg = frame.FrameConfig(width=W, height=H, post_passes=2, bloom=False, shadows=True, **CAPS)
     jp, jsp = jframe.make_frame_inputs(Camera(), RenderSettings(), jcfg)
     tp, tsp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), tcfg)
     jtable, ttable = jax.device_put(table), textures.to_device(table, "cpu")
