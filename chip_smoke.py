@@ -82,6 +82,34 @@ Phases, each reported on its own line:
                    the plain chain; times, bounds, the library yardsticks
                    (conv2d, conv_transpose2d, interpolate), and the launches
                    and device time of one bloom a frame under the profiler;
+  glass small   -- the small scene as cooker.small_glass_scene makes it
+                   (material 6's draws in the transmission class, materials
+                   0-3 normal-mapped), post_passes=3, two 256x128 frames,
+                   kernels on the card against the plain path on the CPU,
+                   the transmission layer's depth and vis too;
+  glass scene   -- the glass frame: cooker.glass_scene of the 1M draws
+                   (125,000 transmission draws, 125,000 alpha draws, normal
+                   maps on materials 0-3), uploaded to the card;
+  glass warmup/glass main -- that frame (post_passes=3, unshadowed) as the
+                   paths above: two cold frames, then three steady ones with
+                   the counters at zero, loss-free, three setups (the alpha
+                   variant), two opaque rasters (early pass and the layer),
+                   one alpha_test raster and two shades (main, one-stream
+                   layer) a frame; each late group's demand, the candidates,
+                   the layer's covered and blended pixels;
+  glass kernels -- every pass's setup and raster and both shades replayed on
+                   a transitional and a steady glass frame, exact;
+  configs small -- configs 0 and 1 (one pass, no late pass) on the small
+                   scene at 256x128, kernels on the card against the CPU;
+  configs       -- the viewer (niagara_tpu_torch.render_scene.run) at
+                   1920x1080 with --config 0, 1 and 2, two frames each of
+                   CONFIG_DRAWS torus draws from a camera file in front of
+                   the first draw, the counters at zero before each: config
+                   0 loss-free with every draw rendered, configs 1 and 2
+                   equal in depth, the PNGs written with the HUD, the camera
+                   file read back equal; config 0 at one draw past the
+                   candidate budget drops draws; config 0's kernels
+                   replayed against their plain versions;
   city small    -- the reduced glTF city (16 blocks) through the .glb ->
                    cook -> DDS -> bake -> table path, two 256x128 frames from
                    its camera with bloom on, kernels on the card against the
@@ -106,8 +134,9 @@ Phases, each reported on its own line:
                    costliest device ops.
 Every path renders with bloom on, as bench.py does.  The line before the
 last is the per-kernel JSON record (times, launches and bounds of the
-steady frames; shade's row also holds its alpha path's numbers under
-"alpha_path", the city's under "city_path"); the last line is
+steady frames; a row also holds the kernel's numbers on other paths
+under "alpha_path", "glass_path", "configs_path" and "city_path"); the
+last line is
 {"ok": true, "device": ...}.  Any failed check raises (nonzero exit).
 """
 
@@ -164,6 +193,13 @@ CITY_REFERENCE = ("15,876 draws, 289,025 meshlets, 312 materials, 312 textures, 
                   "1,857/131,072, pairs 77,292/262,144, class demand [31, 69, 149, 1013, 445, 150], giant cap 256")
 # bloom's launches over frames 2-4: 7 levels down, 7 up, 1 expansion a frame
 BLOOM_LAUNCHES = {"bloom_down": 21, "bloom_up": 21, "bloom_x2": 3}
+# the render size of the glass and configs paths
+FULL = (1920, 1080)
+# the configs path: torus draws and the camera's distance in front of the
+# first draw.  Config 0 expands each draw's 1,089 LOD-0 meshlets (the
+# torus's) against the viewer's candidate budget of 65,536 clusters: up to
+# 60 draws fit; 48 leave 20% headroom
+CONFIG_DRAWS, CONFIG_VIEW = 48, 12.0
 
 
 def log(phase: str, msg: str) -> None:
@@ -281,14 +317,14 @@ def frame_line(s: dict) -> str:
 
 def pass_line(capture: dict) -> str:
     """Clusters, triangles and pairs per pass of a captured frame, and the
-    alpha class's share of each."""
+    post classes' share of each (alpha, or glass in its own pass)."""
     parts = []
-    for name, (tc, _), (ts, pt, rec, *_), stream in zip(("early", "late"), capture["setup"], capture["raster"],
-                                                      capture["shade"][0]):
-        k, n, p = int(tc["count"][0]), int(stream["count"]), int(ts[-1])
+    for name, (tc, _), (ts, pt, rec, *_), st in zip(capture["passes"], capture["setup"], capture["raster"],
+                                                   capture["setup_out"]):
+        k, n, p = int(tc["count"][0]), int(st["count"]), int(ts[-1])
         post = rec[:n, 45] > 0
-        parts.append(f"{name}: {k} clusters ({int((tc['post_pass'][:k] > 0).sum())} alpha), {n} tris "
-                     f"({int(post.sum())} alpha), {p} pairs ({int((rec[pt[:p].long(), 45] > 0).sum())} alpha)")
+        parts.append(f"{name}: {k} clusters ({int((tc['post_pass'][:k] > 0).sum())} post), {n} tris "
+                     f"({int(post.sum())} post), {p} pairs ({int((rec[pt[:p].long(), 45] > 0).sum())} post)")
     return "; ".join(parts)
 
 
@@ -429,6 +465,15 @@ def run_all(base, city_job, dev, smi) -> dict:
     del ds, tex, sun
     torch.cuda.empty_cache()
 
+    # the glass frame: the alpha frame with a transmission class and
+    # normal maps (post_passes=3)
+    run_glass(kernels, geometry, draws, dev, smi, base)
+    torch.cuda.empty_cache()
+
+    # the viewer's configs 0, 1 and 2 (single-pass and two-pass occlusion)
+    run_configs(kernels, dev, smi)
+    torch.cuda.empty_cache()
+
     # the procedural glTF city: reduced, then at bench.py's size
     small = prepare_city(CITY_SMALL_DIR, CITY_SMALL)
     sd = small["sd"]
@@ -472,6 +517,144 @@ def run_all(base, city_job, dev, smi) -> dict:
     profile_frames("city profile", lambda st, i: frame.render_frame(ds, st, path["params"], path["sp"], cfg,
                                                                    textures=tex)[2], path["state"])
     return kernels
+
+
+def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
+    """The glass frame: cooker.glass_scene of the 1M draws (the alpha frame's
+    scene with material 6's draws, 125,000, in the transmission class and
+    materials 0-3 normal-mapped), post_passes=3, unshadowed, bloom on:
+    first its 256x128 form against the CPU, then run_path at 1920x1080, the
+    demand of each late group and the layer's covered and blended pixels,
+    each kernel on the three passes and the layer against its plain
+    version, and the profile.  The path's numbers ride in each kernel's row
+    under "glass_path"."""
+    import torch
+
+    from niagara_tpu_torch import _build, cooker, scene
+    from niagara_tpu_torch.ops import raster_tile, setup
+    from niagara_tpu_torch.render import camera, frame, presets, textures
+
+    g, d, mats, masks, mips = cooker.small_glass_scene(geometry)
+    small_table = textures.build_texture_table(mips)
+    small_reference("glass small", dev, scene.upload(g, d, mats, masks, texture_table=small_table), small_table,
+                    frame.FrameConfig(width=256, height=128, post_passes=3, **presets.small_capacities()),
+                    scene, camera, frame)
+
+    t0 = time.perf_counter()
+    g, d, mats, masks, mips = cooker.glass_scene(geometry, draws)
+    table = textures.build_texture_table(mips)
+    ds = scene.from_numpy(scene.upload(g, d, mats, masks, texture_table=table), dev)
+    tex = textures.to_device(table, dev)
+    torch.cuda.synchronize()
+    log("glass scene", f"{ds.num_draws} draws: {int((d.post_pass == 1).sum())} alpha, {int((d.post_pass == 2).sum())} "
+        f"transmission; {int((mats['textures'][:, 1] >= 0).sum())} of {len(mats['textures'])} materials normal-mapped "
+        f"({mips[-1][0].shape[0]}^2), texel pool {table.texels.shape[0]}, {time.perf_counter() - t0:.1f} s")
+    caps = presets.headline_capacities(ds.num_draws)
+    cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=3, **caps)
+    log("glass scene", f"capacities {caps}")
+    expected = dict(setup=0, setup_alpha=9, raster=6, raster_alpha=3, raster_window=0, raster_alpha_window=0,
+                    shade=6, **BLOOM_LAUNCHES)
+    path = run_path("glass ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
+    s, steady = path["stats"], path["steady"]
+    for name, st, (ts, *_), (tc, cap) in zip(steady["passes"], steady["setup_out"], steady["raster"],
+                                             steady["setup"]):
+        if name != "early":
+            log("glass main", f"frame 4 {name} group: {int(tc['count'][0])} clusters of "
+                f"{cfg.late_cluster_cap}, tris {int(st['count'])} of {cap}, pairs {int(ts[-1])} of "
+                f"{cfg.late_pair_cap}")
+    lay = steady["layer"]
+    covered = int((lay["vis"] != INVALID).sum())
+    blended = int((lay["valid"] & ((lay["depth"] > path["fb"].depth) | ~steady["valid"])).sum())
+    log("glass main", f"frame 4: candidates {int(s['candidates'])} of {cfg.late_candidate_cap}; layer covers {covered} "
+        f"px, blends {blended} px (in front of the opaque surface or over the background)")
+    check(covered > 0 and blended > 0, "the transmission layer blends nothing")
+    compare_kernels("glass ", "transitional frame 1", path["transitional"], ds, path["params"], cfg, setup,
+                    raster_tile)
+    rows = compare_kernels("glass ", "steady frame 4", path["steady"], ds, path["params"], cfg, setup, raster_tile,
+                           base)
+    for r in rows:
+        kernels[r["name"]]["glass_path"] = side_row(r, path["launches"][r["name"]])
+    profile_frames("glass profile", lambda st, i: frame.render_frame(ds, st, path["params"], path["sp"], cfg,
+                                                                    textures=tex)[2], path["state"])
+
+
+def run_configs(kernels, dev, smi) -> None:
+    """The viewer (niagara_tpu_torch.render_scene) at 1920x1080 with
+    --config 0, 1 and 2, two frames each, CONFIG_DRAWS torus draws, from a
+    camera file that looks at the first draw: the launch counters at zero
+    before each, read after; config 0 loss-free, configs 1 and 2 equal in
+    depth; the PNGs written with the HUD; the camera file read back equal;
+    config 0's last frame's kernels (the single-pass early pass) against
+    their plain versions.  The numbers ride in each kernel's row under
+    "configs_path".  Before that, the single-pass frame at 256x128 against
+    the CPU."""
+    import torch
+
+    from niagara_tpu_torch import _build, cooker, render_scene, scene
+    from niagara_tpu_torch.ops import raster_tile, setup
+    from niagara_tpu_torch.render import camera, frame, presets
+
+    geometry = cooker.cook_procedural()
+    for config in (0, 1):
+        small_reference(f"configs small {config}", dev,
+                        scene.upload(geometry, cooker.small_scene_draws(geometry.meshes.count)), None,
+                        frame.FrameConfig(width=256, height=128, **presets.small_capacities(),
+                                          **presets.frame_overrides(config)),
+                        scene, camera, frame, settings=presets.settings_for(config))
+
+    out = os.path.join(ROOT, "chiprun_out", "viewer")
+    cam_file = os.path.join(out, "view.camera.json")
+    os.makedirs(out, exist_ok=True)
+    at = cooker.synthesize_draws(geometry.meshes.count, draw_count=1).position[0] + np.float32([0, 0, CONFIG_VIEW])
+    cam = camera.Camera(position=at)
+    camera.save_camera(cam_file, cam)
+    depth, per = {}, {}
+    for config in (0, 1, 2):
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        capture = {}
+        t0 = time.perf_counter()
+        r = render_scene.run(["--config", str(config), "--frames", "2", "--draws", str(CONFIG_DRAWS), "--size",
+                              f"{FULL[0]}x{FULL[1]}", "--out", os.path.join(out, f"config{config}"), "--camera",
+                              cam_file], capture=capture)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        s = r["stats"].to_dict()
+        per[config] = (r, capture, launches)
+        depth[config] = r["fb"].depth
+        n = 1 if config < 2 else 2
+        expected = dict(setup=2 * n, setup_alpha=0, raster=2 * n, raster_alpha=0, raster_window=0,
+                        raster_alpha_window=0, shade=2, **{k: 2 * v // 3 for k, v in BLOOM_LAUNCHES.items()})
+        log("configs", f"config {config}: {CONFIG_DRAWS} draws, frame ms (CUDA events) {r['frame_ms']}, "
+            f"{secs:.1f} s with the PNGs | {frame_line(s)} covered_px {int((r['fb'].vis != INVALID).sum())} | passes "
+            f"{capture['passes']} | launches {launches} (expected {expected}) on {smi}")
+        check(launches == expected, f"config {config} kernel launch counts")
+        check(all(os.path.getsize(p) > 0 for p in r["paths"]) and len(r["paths"]) == 2, "the viewer wrote no PNGs")
+        check(bool(torch.isfinite(r["image"]).all()), f"config {config}: image not finite")
+        if config == 0:
+            check(all(int(s[k]) == 0 for k in DROPS) and not s["pair_drop_vec"].any(), "config 0 dropped work")
+            check(int(s["visible_draws"]) == CONFIG_DRAWS, "config 0 did not render every draw")
+    # one draw more than the candidate budget holds: config 0 drops whole draws
+    lod0, budget = int(geometry.meshes.lod_meshlet_count[0, 0]), r["cfg"].candidate_cap
+    over = budget // lod0 + 1
+    r = render_scene.run(["--config", "0", "--frames", "1", "--draws", str(over), "--size", f"{FULL[0]}x{FULL[1]}",
+                          "--out", os.path.join(out, "config0_over"), "--camera", cam_file])
+    s = r["stats"].to_dict()
+    log("configs", f"config 0 holds {budget // lod0} draws ({lod0} LOD-0 clusters each, candidate budget {budget}); at "
+        f"{over}: {frame_line(s)}")
+    check(int(s["cmd_dropped"]) > 0, f"config 0 at {over} draws should drop draws past the candidate budget")
+    loaded = camera.load_camera(cam_file)
+    check(np.array_equal(loaded.position, cam.position) and np.array_equal(loaded.orientation, cam.orientation),
+          "the camera file did not round-trip")
+    check((depth[1] > 0).any() and torch.equal(depth[1], depth[2]), "configs 1 and 2 differ in depth")
+    log("configs", f"config 0 loss-free; configs 1 and 2 equal in depth ({int((depth[1] > 0).sum())} px); camera file "
+        f"{cam_file} round-trips; PNGs under {out}")
+    r, capture, launches = per[0]
+    rows = compare_kernels("configs ", "config 0 frame 2", capture, r["scene"], r["params"], r["cfg"], setup,
+                           raster_tile)
+    for row in rows:
+        kernels[row["name"]]["configs_path"] = side_row(row, launches[row["name"]])
 
 
 def side_row(r: dict, launches: int) -> dict:
@@ -529,8 +712,8 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=N
     """Two cold frames, then three steady ones with the launch counters at
     zero: each loss-free and finite, the counters as `expected`.  `cam` and
     `sun_direction` default to the headline frame's.  Returns the inputs
-    kept from frames 1 and 4, the launches, frame 4's stats, the state
-    after frame 4 and the frame inputs."""
+    kept from frames 1 and 4, the launches, frame 4's stats and
+    framebuffer, the state after frame 4 and the frame inputs."""
     import torch
 
     params, sp = frame.make_frame_inputs(cam or camera.Camera(), camera.RenderSettings(), cfg,
@@ -542,9 +725,12 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=N
     state = frame.init_state(ds.num_draws, ds.meshlet_visibility_count, dev)
     transitional = {}
     for i in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         _, _, state, stats = frame.render_frame(ds, state, params, sp, cfg, textures=tex, capture=transitional)
-        log(f"{tag}warmup", f"frame {i}: {frame_line(stats.to_dict())}")
-    torch.cuda.synchronize()
+        end.record()
+        torch.cuda.synchronize()
+        log(f"{tag}warmup", f"frame {i}: {start.elapsed_time(end):.3f} ms (capturing) | {frame_line(stats.to_dict())}")
 
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
@@ -569,50 +755,58 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=N
     log(f"{tag}main", f"frame 4 per pass: {pass_line(steady)}")
     check(launches == expected, "kernel launch counts")
     return dict(transitional=transitional, steady=steady, launches=launches, stats=s, state=state, params=params,
-                sp=sp)
+                sp=sp, fb=fb)
 
 
-def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=None, sun_direction=None) -> None:
+def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=None, sun_direction=None,
+                    settings=None) -> None:
     """256x128, two frames: kernels on the card vs the plain path on the
-    CPU, from `cam` (default: the headline camera).  With a texture table
-    (an alpha-classed scene) the masks must discard: with them cleared the
-    same frame covers other pixels."""
+    CPU, from `cam` (default: the headline camera) with `settings`
+    (default RenderSettings()).  With a texture table (an alpha-classed
+    scene) the masks must discard: with them cleared the same frame covers
+    other pixels.  With post_passes=3 the transmission layer's depth and
+    vis must match too."""
     import dataclasses
 
     import torch
 
     from niagara_tpu_torch.render import textures
 
-    params, sp = frame.make_frame_inputs(cam or camera.Camera(), camera.RenderSettings(), cfg,
+    params, sp = frame.make_frame_inputs(cam or camera.Camera(), settings or camera.RenderSettings(), cfg,
                                          sun_direction=sun_direction)
     runs = {}
     for where in ("cpu", dev):
         sc = scene.from_numpy(np_scene, where)
         tex = None if table is None else textures.to_device(table, where)
         st = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, where)
+        cap = {}
         for _ in range(2):
             state_in = st
-            img, fb, st, stats = frame.render_frame(sc, st, params, sp, cfg, textures=tex)
-        runs[str(where)] = (img.cpu(), fb.depth.cpu(), fb.vis.cpu(), stats.to_dict(), frame.state_to_numpy(st))
-    (ci, cd, cv, cs, cst), (gi, gd, gv, gs, gst) = runs["cpu"], runs[str(dev)]
+            img, fb, st, stats = frame.render_frame(sc, st, params, sp, cfg, textures=tex, capture=cap)
+        layer = cap["layer"] and (cap["layer"]["depth"].cpu(), cap["layer"]["vis"].cpu())
+        runs[str(where)] = (img.cpu(), fb.depth.cpu(), fb.vis.cpu(), stats.to_dict(), frame.state_to_numpy(st), layer)
+    (ci, cd, cv, cs, cst, cl), (gi, gd, gv, gs, gst, gl) = runs["cpu"], runs[str(dev)]
     check(all(np.array_equal(cs[k], gs[k]) for k in cs), "frame stats differ from the CPU plain path")
     check(all(np.array_equal(a, b) for a, b in zip(cst, gst)), "frame state differs from the CPU plain path")
     check(torch.equal(cv, gv), "vis differs from the CPU plain path")
     depth_err = float((cd - gd).abs().max())
     image_err = float((ci - gi).abs().max())
     extra = ""
+    if cl:
+        check(torch.equal(cl[1], gl[1]) and torch.equal(cl[0], gl[0]), "the transmission layer differs from the CPU")
+        extra += f", transmission layer equal ({int((cl[1] != INVALID).sum())} px)"
     if table is not None:
         nomask = dataclasses.replace(sc, meshlet_alpha=torch.zeros_like(sc.meshlet_alpha))
         _, nfb, _, _ = frame.render_frame(nomask, state_in, params, sp, cfg, textures=tex)
         discarded = int(((nfb.vis != INVALID) & (nfb.vis != fb.vis)).sum())
-        extra = f", masks discard {discarded} px (they win them with the masks cleared)"
+        extra += f", masks discard {discarded} px (they win them with the masks cleared)"
         check(discarded > 0, "the opacity masks discard nothing")
     # depth: every op rounded alike on both sides; image: the composite's
     # pow/exp (and the textures' sRGB decode) differ between the CPU's and
     # the GPU's math libraries (opaque: worst seen 9.24e-7 on an H100)
     log(tag, f"256x128 two frames, kernels on {dev} vs plain on cpu: stats/state/vis equal, "
         f"depth max_abs_err {depth_err:.3g}, image max_abs_err {image_err:.3g} (tolerances 0 / 2e-6), "
-        f"covered px {int((cv != INVALID).sum())}{extra}")
+        f"covered px {int((cv != INVALID).sum())}, passes {cap['passes']}{extra}")
     check(depth_err == 0.0 and image_err <= 2e-6, "small frame differs from the CPU plain path")
 
 
@@ -706,7 +900,7 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
         r["bytes"] += work[0]
         r["ops"] += work[1]
 
-    for pass_, (tc, cap) in zip(("early", "late"), capture["setup"]):
+    for pass_, (tc, cap) in zip(capture["passes"], capture["setup"]):
         name = "setup_alpha" if "alpha" in tc else "setup"
         k_out = setup.setup_cuda(tc, ds, params, W, H, cap)
         p_out = setup.setup_plain(tc, ds, params, W, H, cap)
@@ -729,7 +923,7 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
     # random mask bits: the path's visible alpha draws pick coarse LODs
     # whose conservative masks may have no clear cell, which would leave
     # the discard branch untested at this size
-    for pass_, args, alpha in zip(("early", "late"), capture["raster"], capture["raster_alpha_test"]):
+    for pass_, args, alpha in zip(capture["passes"], capture["raster"], capture["raster_alpha_test"]):
         name = "raster_alpha" if alpha else "raster"
         args = (*args, tiles_x)
         ts, pt, rec, off, d0, v0, _ = args
@@ -768,15 +962,18 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
             cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=alpha), 2),
             raster_work(args, alpha, H, W, tiles_x))
 
-    streams, vis = capture["shade"]
-    ka, pa = raster_tile.shade_cuda(streams, vis), raster_tile.shade_plain(streams, vis)
-    err = max_abs_err(ka, pa)
-    check(torch.equal(ka.view(torch.int32), pa.view(torch.int32)), f"{label} shade: not bit for bit")
-    log(f"{tag}kernels", f"{label} shade: {len(streams)} streams, {int((vis != INVALID).sum())} covered px, "
-        f"max_abs_err {err}, bit for bit")
-    old = (lambda: braster.shade_cuda(streams, vis)) if base else None
-    add("shade", err, in_turns(lambda: raster_tile.shade_cuda(streams, vis), old, 20),
-        cuda_ms(lambda: raster_tile.shade_plain(streams, vis), 5), shade_work(streams, vis))
+    # the main visibility buffer's streams, then the transmission layer's
+    # one stream over its own buffer
+    layers = [("", capture["shade"])] + ([(" layer", capture["shade_layer"])] if "shade_layer" in capture else [])
+    for what, (streams, vis) in layers:
+        ka, pa = raster_tile.shade_cuda(streams, vis), raster_tile.shade_plain(streams, vis)
+        err = max_abs_err(ka, pa)
+        check(torch.equal(ka.view(torch.int32), pa.view(torch.int32)), f"{label} shade{what}: not bit for bit")
+        log(f"{tag}kernels", f"{label} shade{what}: {len(streams)} streams, {int((vis != INVALID).sum())} covered px, "
+            f"max_abs_err {err}, bit for bit")
+        old = (lambda: braster.shade_cuda(streams, vis)) if base else None
+        add("shade", err, in_turns(lambda: raster_tile.shade_cuda(streams, vis), old, 20),
+            cuda_ms(lambda: raster_tile.shade_plain(streams, vis), 5), shade_work(streams, vis))
 
     sources = dict(setup=("setup.cu", "niagara_tpu/ops/setup_fused.py:190"),
                    setup_alpha=("setup.cu", "niagara_tpu/ops/setup_fused.py:166"),

@@ -9,7 +9,11 @@
   camera, which the parity tests and chip_smoke.py render at 256x128;
 * `alpha_scene`: a scene made textured and alpha-classed the way bench.py
   makes it (bench.py:88-99), on a copy of the geometry;
-  `small_alpha_scene` is the small scene's form.
+  `small_alpha_scene` is the small scene's form;
+* `glass_scene`: the alpha scene with one material's draws moved to the
+  transmission class (post pass 2) and the first materials normal-mapped
+  by `synthesize_normal_map`; `small_glass_scene` is the small scene's
+  form.  The reference has no such scene; its content is the port's own.
 """
 
 from __future__ import annotations
@@ -149,3 +153,51 @@ def small_alpha_scene(geometry: Geometry):
     the raster-time test discards pixels.  The same tuple as alpha_scene."""
     draws = small_scene_draws(geometry.meshes.count)
     return alpha_scene(geometry, draws, cutouts=(draws.count - 3,), uv_tiles=SMALL_UV_TILES)
+
+
+GLASS_MATERIAL = 6  # glass_scene's transmission material
+NORMAL_MAPPED = 4  # glass_scene normal-maps materials [0, NORMAL_MAPPED)
+
+
+def synthesize_normal_map(size: int = 256, seed: int = 3) -> list:
+    """A seeded tangent-space normal map, RGBA8 with its mips (each the
+    previous one's even texels): the normalized gradient of a sum of six
+    sines of whole frequencies (so it tiles), n = (-dh/dx, -dh/dy, 1)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] * (2.0 * np.pi / size)
+    dx = np.zeros((size, size))
+    dy = np.zeros((size, size))
+    for _ in range(6):
+        fx, fy = rng.integers(1, 9, 2)
+        amp, phase = rng.uniform(0.02, 0.08), rng.uniform(0, 2 * np.pi)
+        c = amp * np.cos(fx * xx + fy * yy + phase)
+        dx += c * fx
+        dy += c * fy
+    n = np.stack([-dx, -dy, np.ones_like(dx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., :3] = np.round((n * 0.5 + 0.5) * 255.0).astype(np.uint8)
+    img[..., 3] = 255
+    mips = [img]
+    while mips[-1].shape[0] > 1:
+        mips.append(mips[-1][::2, ::2])
+    return mips
+
+
+def glass_scene(geometry: Geometry, draws: Draws, cutouts=(), uv_tiles: float = 6.0):
+    """alpha_scene, then the draws of material GLASS_MATERIAL (1/8 of them)
+    in the transmission class and materials [0, NORMAL_MAPPED) normal-mapped
+    (texture slot 1) by synthesize_normal_map, appended as the last
+    texture.  The masks stay those of the alpha class.  The same tuple as
+    alpha_scene."""
+    g, draws, materials, masks, mips = alpha_scene(geometry, draws, cutouts=cutouts, uv_tiles=uv_tiles)
+    draws.post_pass[draws.material_index == GLASS_MATERIAL] = 2
+    materials["textures"][:NORMAL_MAPPED, 1] = len(mips)
+    return g, draws, materials, masks, mips + [synthesize_normal_map()]
+
+
+def small_glass_scene(geometry: Geometry):
+    """small_alpha_scene's draws through glass_scene: draws 6, 14, ..., 46
+    in the transmission class, the near ring (draw 45) in the alpha class."""
+    draws = small_scene_draws(geometry.meshes.count)
+    return glass_scene(geometry, draws, cutouts=(draws.count - 3,), uv_tiles=SMALL_UV_TILES)

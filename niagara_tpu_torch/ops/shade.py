@@ -1,11 +1,12 @@
-"""G-buffer encode and composite (niagara_tpu/ops/shade.py):
+"""G-buffer encode, composite and debug views (niagara_tpu/ops/shade.py):
 `gbuffer_from_attrs` (:260) with its material fetch (`_mat_rows` :159,
-here one gather), texture sampling (`_sample_materials` :173,
-albedo/specular/emissive slots) and the shade-time alpha discard
+here one gather), texture sampling (`_sample_materials` :173, all four
+slots), normal maps through the screen-space tangent frame
+(`_screen_space_tbn` :224, :297-325) and the shade-time alpha discard
 (:319); `_lit_color` (:378) and `composite` (:420) with the sun-map
-shadow term (:415-416, 444) and the bloom term (:451-452).  Not ported
-yet: the transmission layer.  Normal maps (slot 1, the screen-space
-tangent frame) are not ported: a scene whose materials carry one raises.
+shadow term (:415-416, 444), the bloom term (:451-452) and the
+transmission layer's depth-tested blend (:460-475); `debug_visualize`
+and `_hash_color` (:482-516).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from ..render import textures as tex_mod
 from . import cullmath
+from .raster import INVALID_FRAG
 
 _LUM = (0.3, 0.6, 0.1)
 
@@ -21,7 +23,8 @@ _LUM = (0.3, 0.6, 0.1)
 def _sample_materials(scene, textures, row, uv, duv):
     """Material factors of the per-pixel megarows `row` times their
     sampled textures (shade.py:173).  Returns (albedo, specgloss,
-    emissive)."""
+    emissive, tangent-space normal [..., 3] or None when no material has a
+    normal map, texture ids)."""
     albedo, specgloss, emissive = row[..., 0:4], row[..., 4:8], row[..., 8:11]
     tex_ids = row[..., 11:15].to(torch.int32)
     mip = tex_mod.select_mip_from_area(duv, torch.clamp_min(row[..., 15], 1.0))
@@ -33,25 +36,68 @@ def _sample_materials(scene, textures, row, uv, duv):
         return tex_mod.sample(textures, tex_ids[..., idx], uv, mip, meta=meta)
 
     slots = scene.texture_slots
-    if slots[1]:
-        raise NotImplementedError("normal-mapped materials are not ported (screen-space tangent frame)")
     if slots[0]:
         t = tex(0, meta=meta0)
         albedo = albedo * torch.where((tex_ids[..., 0] > 0)[..., None],
                                       torch.cat([cullmath.from_srgb(t[..., :3]), t[..., 3:]], dim=-1), 1.0)
+    nmap = tex(1)[..., :3] * 2.0 - 1.0 if slots[1] else None
     if slots[2]:
         specgloss = specgloss * torch.where((tex_ids[..., 2] > 0)[..., None], cullmath.from_srgb(tex(2)), 1.0)
     if slots[3]:
         emissive = emissive * torch.where((tex_ids[..., 3] > 0)[..., None], cullmath.from_srgb(tex(3)[..., :3]), 1.0)
-    return albedo, specgloss, emissive
+    return albedo, specgloss, emissive, nmap, tex_ids
 
 
-def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
+def _screen_space_tbn(wpos, uv, nrm):
+    """Tangent and bitangent [H, W, 3] from screen-space differences of
+    world position and uv (shade.py:224): `ddx` the difference to the next
+    column, `ddy` the upward one (the row above minus this row: the frame
+    wants a y-up screen), each repeating its last difference at the
+    edge.  The reference's rsqrt is one IEEE square root and one IEEE
+    division here, on every device."""
+
+    def ddx(a):
+        d = a[:, 1:] - a[:, :-1]
+        return torch.cat([d, d[:, -1:]], dim=1)
+
+    def ddy(a):
+        d = a[:-1] - a[1:]
+        return torch.cat([d, d[-1:]], dim=0)
+
+    dp1, dp2 = ddx(wpos), ddy(wpos)
+    du1, dv1 = ddx(uv[..., 0]), ddx(uv[..., 1])
+    du2, dv2 = ddy(uv[..., 0]), ddy(uv[..., 1])
+    dp2perp = cullmath.cross(dp2, nrm)
+    dp1perp = cullmath.cross(nrm, dp1)
+    t = dp2perp * du1[..., None] + dp1perp * du2[..., None]
+    b = dp2perp * dv1[..., None] + dp1perp * dv2[..., None]
+    inv = cullmath.rdiv(1.0, torch.sqrt(torch.clamp_min(torch.maximum(cullmath.dot3(t, t), cullmath.dot3(b, b)),
+                                                        1e-20)))[..., None]
+    return t * inv, b * inv
+
+
+def _world_position(depth, inverse_view_projection, width: int, height: int):
+    """World position [H, W, 3] of every pixel centre from reverse-Z depth
+    (shade.py:309-322, 388-398): the NDC planes through the inverse
+    view-projection (host constants), divided by w guarded at 1e-20."""
+    ndc_x, ndc_y = ndc_planes(width, height, depth.device)
+    ivp = inverse_view_projection
+    clip = (ndc_x[None, :].expand(depth.shape), ndc_y[:, None].expand(depth.shape), depth)
+    wposh = [clip[0] * float(ivp[i, 0]) + clip[1] * float(ivp[i, 1]) + clip[2] * float(ivp[i, 2])
+             + float(ivp[i, 3]) for i in range(4)]
+    wdiv = torch.where(torch.abs(wposh[3]) < 1e-20, 1e-20, wposh[3])
+    return torch.stack(wposh[:3], dim=-1) / wdiv[..., None]
+
+
+def gbuffer_from_attrs(attrs_img, valid, scene, textures=None, *, depth=None, inverse_view_projection=None):
     """Dense G-buffer from the shade kernel's attribute planes [H,W,13]:
     g0 = srgb albedo + log emissive, g1 = oct normal + gloss.  With
     `textures` (render.textures.TextureTable on the device) it samples the
     materials' textures and discards post-pass pixels whose albedo alpha
-    is under 0.5.  Returns (g0, g1, valid)."""
+    is under 0.5; a material with a normal map bends the normal through
+    the screen-space tangent frame, which needs `depth` [H, W] and
+    `inverse_view_projection` (without them the map is ignored, as in the
+    reference).  Returns (g0, g1, valid)."""
     normal = attrs_img[..., 0:3]
     mat = attrs_img[..., 7].to(torch.int64)
     nrm = normal / torch.clamp_min(torch.sqrt(cullmath.dot3(normal, normal))[..., None], 1e-20)
@@ -65,7 +111,14 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None):
     nm = scene.mat_row.shape[0]
     row = scene.mat_row[0].expand(*mat.shape, -1) if nm == 1 else scene.mat_row[mat]
     if textures is not None:
-        albedo, specgloss, emissive = _sample_materials(scene, textures, row, attrs_img[..., 3:5], attrs_img[..., 12])
+        uv = attrs_img[..., 3:5]
+        albedo, specgloss, emissive, nmap, tex_ids = _sample_materials(scene, textures, row, uv, attrs_img[..., 12])
+        if nmap is not None and depth is not None and inverse_view_projection is not None:
+            h, w = depth.shape
+            tdir, bdir = _screen_space_tbn(_world_position(depth, inverse_view_projection, w, h), uv, nrm)
+            mapped = nmap[..., 0:1] * tdir + nmap[..., 1:2] * bdir + nmap[..., 2:3] * nrm
+            mapped = mapped / torch.clamp_min(torch.sqrt(cullmath.dot3(mapped, mapped))[..., None], 1e-20)
+            nrm = torch.where((tex_ids[..., 1] > 0)[..., None], mapped, nrm)
         post = attrs_img[..., 8].to(torch.int32)
         valid = valid & ~((post > 0) & (albedo[..., 3] < 0.5))
     else:
@@ -91,23 +144,13 @@ def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_pr
                width: int, height: int, shadow_term=None):
     """Sun N.L + Blinn-Phong + ambient + emissive (shade.py:378), the sun
     terms scaled by `shadow_term` [H, W] (None: unshadowed)."""
-    dev = depth.device
     albedo = cullmath.from_srgb(g0[..., :3])
     emissive = albedo * (torch.exp2(g0[..., 3] * 5.0) - 1.0)[..., None]
     normal = cullmath.oct_decode(g1[..., :2] * 2.0 - 1.0)
     sun = [float(c) for c in sun_direction]  # host constants: no copy to the device
     ndotl = torch.clamp_min(cullmath.dot3(normal, sun), 0.0)
 
-    # world position from reverse-Z depth
-    ndc_x, ndc_y = ndc_planes(width, height, dev)
-    ndc_x, ndc_y = ndc_x[None, :], ndc_y[:, None]
-    ivp = inverse_view_projection
-    clip = (ndc_x.expand(depth.shape), ndc_y.expand(depth.shape), depth)
-    wposh = [clip[0] * float(ivp[i, 0]) + clip[1] * float(ivp[i, 1]) + clip[2] * float(ivp[i, 2])
-             + float(ivp[i, 3]) for i in range(4)]
-    wdiv = torch.where(torch.abs(wposh[3]) < 1e-20, 1e-20, wposh[3])
-    wpos = torch.stack(wposh[:3], dim=-1) / wdiv[..., None]
-
+    wpos = _world_position(depth, inverse_view_projection, width, height)
     view = torch.stack([float(c) - wpos[..., i] for i, c in enumerate(camera_position)], dim=-1)
     view = view / torch.clamp_min(torch.sqrt(cullmath.dot3(view, view))[..., None], 1e-20)
     halfv = torch.stack([view[..., i] + sun[i] for i in range(3)], dim=-1)
@@ -127,16 +170,25 @@ def _lit_color(g0, g1, depth, *, camera_position, sun_direction, inverse_view_pr
 
 
 def composite(g0, g1, depth, valid, *, camera_position, sun_direction, inverse_view_projection,
-              width: int, height: int, shadow=None, bloom=None):
+              width: int, height: int, shadow=None, bloom=None, transmission=None):
     """G-buffer -> tonemapped, debanded image [H,W,3] (shade.py:420);
     `shadow` is the sun's shadow term [H, W] or None (unshadowed), `bloom`
-    the full-resolution bloom [H, W, 3] or None."""
-    color = _lit_color(g0, g1, depth, camera_position=camera_position, sun_direction=sun_direction,
-                       inverse_view_projection=inverse_view_projection, width=width, height=height,
-                       shadow_term=shadow)
+    the full-resolution bloom [H, W, 3] or None.  `transmission` = (g0t,
+    g1t, depth_t, valid_t), the transmission class's own layer, lit
+    unshadowed: where its surface is nearer than the opaque one
+    (reverse-Z: greater) or over the background, the colour becomes the
+    mean of the two (shade.py:460-475)."""
+    light = dict(camera_position=camera_position, sun_direction=sun_direction,
+                 inverse_view_projection=inverse_view_projection, width=width, height=height)
+    color = _lit_color(g0, g1, depth, shadow_term=shadow, **light)
     if bloom is not None:
         color = color + bloom * 0.1
     color = torch.where(valid[..., None], color, 0.0)
+    if transmission is not None:
+        g0t, g1t, depth_t, valid_t = transmission
+        tcol = _lit_color(g0t, g1t, depth_t, **light)
+        t_front = valid_t & ((depth_t > depth) | ~valid)
+        color = torch.where(t_front[..., None], color * 0.5 + tcol * 0.5, color)
     dev = depth.device
     xy = torch.stack([
         torch.arange(width, dtype=torch.float32, device=dev)[None, :].expand(depth.shape),
@@ -144,3 +196,32 @@ def composite(g0, g1, depth, valid, *, camera_position, sun_direction, inverse_v
     ], dim=-1)
     deband = cullmath.gradient_noise(xy) * 2.0 - 1.0
     return cullmath.tonemap(color) + (deband * (0.5 / 255.0))[..., None]
+
+
+def _hash_color(h):
+    """u32 hash (int64 tensor of u32 values) -> rgb in [0, 1]
+    (shade.py:482): every step reduced mod 2^32 as the reference's u32
+    arithmetic wraps."""
+    m = 0xFFFFFFFF
+    h = ((h + 0x7ED55D16) + (h << 12)) & m
+    h = ((h ^ 0xC761C23C) ^ (h >> 19)) & m
+    h = ((h + 0x165667B1) + (h << 5)) & m
+    h = ((h + 0xD3A2646C) ^ (h << 9)) & m
+    h = ((h + 0xFD7046C5) + (h << 3)) & m
+    h = ((h ^ 0xB55A4F09) ^ (h >> 16)) & m
+    return torch.stack([cullmath.div(((h >> s) & 255).to(torch.float32), 255.0) for s in (0, 8, 16)], dim=-1)
+
+
+def debug_visualize(fb, tc, setup, mode: str = "meshlet"):
+    """Debug colours (shade.py:499): 'meshlet' hashes each pixel's meshlet
+    id, 'draw' its draw id, 'depth' shows the reverse-Z depth scaled by its
+    maximum.  `tc` and `setup` are every pass's cluster metadata and setup
+    outputs concatenated in fragment-id order (render.frame.debug_inputs);
+    uncovered pixels are black."""
+    valid = fb.vis != INVALID_FRAG
+    if mode == "depth":
+        d = fb.depth / torch.clamp_min(fb.depth.max(), 1e-8)
+        return torch.where(valid[..., None], torch.stack([d, d, d], dim=-1), 0.0)
+    k = setup["tri_k"][torch.where(valid, fb.vis, 0).to(torch.int64)]
+    key = tc["draw_id" if mode == "draw" else "mi"][k]
+    return torch.where(valid[..., None], _hash_color(key.to(torch.int64) & 0xFFFFFFFF), 0.0)

@@ -1,8 +1,10 @@
-"""Camera state and per-frame culling constants, JAX-free
-(niagara_tpu/render/camera.py)."""
+"""Camera state, camera files and per-frame culling constants, JAX-free
+(niagara_tpu/render/camera.py).  The camera file is the reference's JSON
+(version 1): files written by either package load in the other."""
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -18,6 +20,30 @@ class Camera:
     orientation: np.ndarray = field(default_factory=math3d.quat_identity)
     fov_y: float = float(np.radians(70.0))
     znear: float = 0.1
+
+
+def save_camera(path: str, camera: Camera) -> None:
+    """Write the camera as the reference's version-1 JSON (camera.py:25)."""
+    with open(path, "w") as f:
+        json.dump({
+            "version": 1,
+            "position": [float(v) for v in camera.position],
+            "orientation": [float(v) for v in camera.orientation],
+            "fov_y": float(camera.fov_y),
+            "znear": float(camera.znear),
+        }, f)
+
+
+def load_camera(path: str) -> Camera:
+    """Read a version-1 camera file (camera.py:42); another version raises
+    ValueError."""
+    with open(path) as f:
+        data = json.load(f)
+    if data.get("version") != 1:
+        raise ValueError(f"unsupported camera file version in {path}")
+    return Camera(position=np.array(data["position"], dtype=np.float32),
+                  orientation=np.array(data["orientation"], dtype=np.float32),
+                  fov_y=float(data["fov_y"]), znear=float(data["znear"]))
 
 
 @dataclass

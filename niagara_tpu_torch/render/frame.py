@@ -16,10 +16,15 @@ samples textures when given a table, with `FrameConfig.shadows` and a
 sun map (`sun`, ops/sunmap.py) resolves and blurs the sun's shadow term,
 and with `FrameConfig.bloom` (the default, as the reference's) adds the
 bloom chain of the G-buffer's emissive (ops/bloom.py) to the composite.
-Not ported yet: the transmission layer (post_passes=3) and the
-ray-traced (BVH) shadows.  Fragment ids: early records are
-[0, tri_capacity), late records tri_capacity + [0, late_tri_capacity)
-(frame.py:389).
+`post_passes=3` adds the transmission class (postPass 2): the late pass
+splits its survivors into the groups (0, 1) and (2,), and the second
+rasterizes into a layer of its own, shaded with one stream and blended in
+the composite (frame.py:376-431, 592-629).  `occlusion_two_pass=False`
+(configs 0 and 1) renders one early pass of every draw the cull passes,
+class 0 only, with no pyramid and no late pass (frame.py:281-290, 561-581).
+Not ported yet: the ray-traced (BVH) shadows.  Fragment ids: early
+records are [0, tri_capacity), the late group g's tri_capacity +
+g * late_tri_capacity + [0, late_tri_capacity) (frame.py:389).
 """
 
 from __future__ import annotations
@@ -65,9 +70,13 @@ class FrameConfig:
     pair_class_caps: tuple | None = None
     # the giant pair class's budget (raster_tile.GIANT_CAPACITY)
     giant_capacity: int = raster_tile.GIANT_CAPACITY
+    # False: one early pass over every draw the cull passes, no pyramid and
+    # no late pass (configs 0 and 1, presets.frame_overrides)
+    occlusion_two_pass: bool = True
     # the bloom chain of the emissive G-buffer, added to the composite
     bloom: bool = True
-    # draw classes: 1 = opaque only; 2 adds the alpha-test class
+    # draw classes: 1 = opaque only; 2 adds the alpha-test class; 3 the
+    # transmission class in its own layer
     post_passes: int = 1
     # sun-map shadows (render_frame's `sun`), blurred by the depth-aware
     # bilateral filter
@@ -75,8 +84,8 @@ class FrameConfig:
     shadow_blur: bool = True
 
     def __post_init__(self):
-        if self.post_passes not in (1, 2):
-            raise NotImplementedError("post_passes must be 1 or 2: the transmission layer (3) is not ported")
+        if self.post_passes not in (1, 2, 3):
+            raise ValueError(f"post_passes must be 1, 2 or 3, got {self.post_passes}")
 
     @property
     def late_cluster_cap(self):
@@ -101,8 +110,9 @@ class FrameConfig:
     @property
     def late_class_groups(self):
         """The late pass's raster grouping (frame.py:135): opaque and
-        alpha-test classes share one stream."""
-        return ((0,),) if self.post_passes == 1 else ((0, 1),)
+        alpha-test classes share one stream, transmission gets its own
+        layer."""
+        return {1: ((0,),), 2: ((0, 1),)}.get(self.post_passes, ((0, 1), (2,)))
 
     @property
     def pyramid_levels_shape(self):
@@ -163,8 +173,10 @@ def state_to_numpy(state: FrameState) -> tuple[np.ndarray, np.ndarray]:
 
 def _cluster_pass(scene, params, emit, lod, dvb, words, atlas, cfg, *, late, pyr_hw):
     """Cluster cull + screen-x order + setup metadata for one pass; the late
-    pass culls every class of the frame and keeps the survivors of its one
-    class group."""
+    pass culls every class of the frame together and splits the survivors
+    into the class groups of `cfg.late_class_groups`.  Returns ([(tc,
+    cluster count)] one per group, new words, emitted draws, draw drops,
+    cluster drops, candidates)."""
     groups, new_words, n_draws, ddrop, cdrop, n_cand = cull.cluster_cull_direct_multi(
         scene, params, emit, lod, dvb, words, atlas, late=late, pyramid_shape=pyr_hw,
         draw_capacity=cfg.cmd_capacity,
@@ -172,17 +184,25 @@ def _cluster_pass(scene, params, emit, lod, dvb, words, atlas, cfg, *, late, pyr
         candidate_capacity=cfg.late_candidate_cap if late else cfg.candidate_cap,
         num_classes=cfg.post_passes if late else 1, class_groups=cfg.late_class_groups if late else None,
     )
-    ((cdraw, cmi, ccount),) = groups
-    cdraw, cmi = raster.order_clusters_by_x(scene, params, cdraw, cmi, ccount)
-    tc = raster.transform_meta_direct(scene, cdraw, cmi, ccount)
-    return tc, ccount, new_words, n_draws, ddrop, cdrop, n_cand
+    out = []
+    for cdraw, cmi, ccount in groups:
+        cdraw, cmi = raster.order_clusters_by_x(scene, params, cdraw, cmi, ccount)
+        out.append((raster.transform_meta_direct(scene, cdraw, cmi, ccount), ccount))
+    return out, new_words, n_draws, ddrop, cdrop, n_cand
 
 
 def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict | None = None):
     """Cull + raster + attribute resolve for one frame.  Returns (fb,
-    new_state, stats, attrs [H,W,13]).  A `capture` dict receives the
-    inputs of every kernel call (chip_smoke.py replays them against the
-    plain versions) and the two passes' setup outputs ("setup_out")."""
+    new_state, stats, attrs [H,W,13], layer): `layer` is the transmission
+    class's own dict(depth, vis, attrs) with post_passes=3, else None.
+
+    A `capture` dict receives the inputs of every kernel call (chip_smoke.py
+    replays them against the plain versions), in pass order ("passes":
+    "early", then "late" for each opaque/alpha group and "glass" for the
+    transmission group): "setup" [(tc, capacity)], "setup_out", "raster"
+    [(tile_start, pair_tri, rec, frag offset, depth, vis) carried in],
+    "raster_alpha_test", "shade" (streams, vis) and, with the layer,
+    "shade_layer"."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
     dev = state.draw_vis.device
     levels, ph, pw = cfg.pyramid_levels_shape
@@ -190,62 +210,121 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     tiles_x, tiles_y = cfg.width // TILE_W, cfg.height // TILE_H
     raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps,
                      giant_capacity=cfg.giant_capacity)
+    passes = []  # name, tc, capacity, setup out, raster stats, frag offset, carried depth/vis, alpha_test
 
-    # early pass: last frame's visible draws and clusters
+    def render_pass(name, tc, capacity, frag_offset, depth, vis, pair_capacity, alpha_test=False):
+        st = setup.setup_compact(tc, scene, params, cfg.width, cfg.height, capacity)
+        out_depth, out_vis, rst = raster_tile.rasterize_tiles(
+            st, depth, vis, pair_capacity=pair_capacity, frag_offset=frag_offset, alpha_test=alpha_test, **raster_kw)
+        passes.append(dict(name=name, tc=tc, cap=capacity, st=st, rst=rst, off=frag_offset, carry=(depth, vis),
+                           alpha=alpha_test))
+        return out_depth, out_vis
+
+    def clear():
+        return (torch.zeros((cfg.height, cfg.width), dtype=torch.float32, device=dev),
+                torch.full((cfg.height, cfg.width), INVALID_FRAG, dtype=torch.int32, device=dev))
+
+    # early pass: last frame's visible draws and clusters.  Without the late
+    # pass (occlusion_two_pass=False) nothing would ever turn visible, so it
+    # renders every draw and cluster the cull passes (frame.py:281-290):
+    # all-ones draw visibility and visibility words (u32 words in int64)
+    if cfg.occlusion_two_pass:
+        early_dvb, early_words = state.draw_vis, state.vis_words
+    else:
+        early_dvb, early_words = torch.ones_like(state.draw_vis), torch.full_like(state.vis_words, 0xFFFFFFFF)
     empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
-    emit_e, lod_e, _ = cull.draw_cull(scene, params, state.draw_vis, empty_atlas, late=False, pyramid_shape=pyr_hw)
-    tc_e, ccount_e, _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
-        scene, params, emit_e, lod_e, state.draw_vis, state.vis_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
-    st_e = setup.setup_compact(tc_e, scene, params, cfg.width, cfg.height, cfg.tri_capacity)
-    depth = torch.zeros((cfg.height, cfg.width), dtype=torch.float32, device=dev)
-    vis = torch.full((cfg.height, cfg.width), INVALID_FRAG, dtype=torch.int32, device=dev)
-    carry_e = (depth, vis)
-    depth, vis, rst_e = raster_tile.rasterize_tiles(
-        st_e, depth, vis, pair_capacity=cfg.pair_capacity, frag_offset=0, **raster_kw)
+    emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
+    ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
+        scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
+    depth, vis = render_pass("early", tc_e, cfg.tri_capacity, 0, *clear(), cfg.pair_capacity)
 
-    # late pass: newly visible draws and clusters (and every visible draw of
-    # the alpha class), occlusion-tested against the early depth, with the
-    # visibility write-back
-    atlas = pyramid.build_pyramid(depth, levels, ph, pw)
-    emit_l, lod_l, new_draw_vis = cull.draw_cull(
-        scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
-    tc_l, ccount_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
-        scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
-    st_l = setup.setup_compact(tc_l, scene, params, cfg.width, cfg.height, cfg.late_tri_cap)
-    carry_l = (depth, vis)
-    depth, vis, rst_l = raster_tile.rasterize_tiles(
-        st_l, depth, vis, pair_capacity=cfg.late_pair_cap,
-        frag_offset=cfg.tri_capacity, alpha_test=cfg.post_passes == 2, **raster_kw)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    layer_depth = layer_vis = None
+    if cfg.occlusion_two_pass:
+        # late pass: newly visible draws and clusters (and every visible draw
+        # of the post classes), occlusion-tested against the early depth, with
+        # the visibility write-back; one setup and raster per class group, at
+        # fragment offset tri_capacity + g * late_tri_capacity (frame.py:389).
+        # The transmission group (2,) rasterizes into its own cleared layer
+        # and never touches the opaque depth/vis (frame.py:390-405)
+        atlas = pyramid.build_pyramid(depth, levels, ph, pw)
+        emit_l, lod_l, new_draw_vis = cull.draw_cull(
+            scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
+        groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
+            scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
+        for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
+            off = cfg.tri_capacity + g * cfg.late_tri_cap
+            if group == (2,):
+                layer_depth, layer_vis = render_pass("glass", tc, cfg.late_tri_cap, off, *clear(), cfg.late_pair_cap)
+            else:
+                depth, vis = render_pass("late", tc, cfg.late_tri_cap, off, depth, vis, cfg.late_pair_cap,
+                                         alpha_test=1 in group)
+        new_state = FrameState(draw_vis=new_draw_vis.to(torch.int32), vis_words=new_words)
+        ccount_l = sum((c for _, c in groups_l), zero)
+        visible_draws = new_draw_vis.sum()
+    else:
+        # the carried state stays meaningful without a late pass (frame.py:561-581)
+        new_state = FrameState(draw_vis=vis_e.to(torch.int32), vis_words=state.vis_words)
+        ncmd_l = ccount_l = ddrop_l = cdrop_l = n_cand = zero
+        visible_draws = emit_e.sum()
 
-    attrs = raster_tile.shade_tiles([rst_e["stream"], rst_l["stream"]], vis)
+    main = [p for p in passes if p["name"] != "glass"]
+    streams = [p["rst"]["stream"] for p in main]
+    attrs = raster_tile.shade_tiles(streams, vis)
+    layer = None
+    if layer_vis is not None:
+        glass = passes[-1]["rst"]["stream"]
+        layer = dict(depth=layer_depth, vis=layer_vis, attrs=raster_tile.shade_tiles([glass], layer_vis))
     if capture is not None:
         capture.update(
-            setup=[(tc_e, cfg.tri_capacity), (tc_l, cfg.late_tri_cap)],
-            setup_out=[st_e, st_l],
-            raster=[(rst["tile_start"], rst["pair_tri"], st["rec"], off, *carry)
-                    for rst, st, off, carry in ((rst_e, st_e, 0, carry_e),
-                                                (rst_l, st_l, cfg.tri_capacity, carry_l))],
-            raster_alpha_test=(False, cfg.post_passes == 2),
-            shade=([rst_e["stream"], rst_l["stream"]], vis),
+            passes=[p["name"] for p in passes],
+            setup=[(p["tc"], p["cap"]) for p in passes],
+            setup_out=[p["st"] for p in passes],
+            raster=[(p["rst"]["tile_start"], p["rst"]["pair_tri"], p["st"]["rec"], p["off"], *p["carry"])
+                    for p in passes],
+            raster_alpha_test=tuple(p["alpha"] for p in passes),
+            shade=(streams, vis),
+            cluster_capacity=[cfg.cluster_capacity] + [cfg.late_cluster_cap] * (len(passes) - 1),
         )
-    new_state = FrameState(draw_vis=new_draw_vis.to(torch.int32), vis_words=new_words)
+        if layer is not None:
+            capture["shade_layer"] = ([glass], layer_vis)
+        else:
+            capture.pop("shade_layer", None)
+
+    def total(key, where="st"):
+        return sum((p[where][key] for p in passes[1:]), passes[0][where][key])
+
     stats = FrameStats(
         early_commands=ncmd_e,
         late_commands=ncmd_l,
         early_clusters=ccount_e,
         late_clusters=ccount_l,
-        visible_draws=new_draw_vis.sum(),
+        visible_draws=visible_draws,
         cmd_dropped=ddrop_e + ddrop_l,
         cluster_dropped=cdrop_e + cdrop_l,
-        tri_dropped=st_e["dropped"] + st_l["dropped"],
-        pair_dropped=rst_e["dropped"] + rst_l["dropped"],
-        pair_drop_vec=rst_e["drop_vec"] + rst_l["drop_vec"],
-        pair_demand_vec=rst_e["demand_vec"] + rst_l["demand_vec"],
+        tri_dropped=total("dropped"),
+        pair_dropped=total("dropped", "rst"),
+        pair_drop_vec=total("drop_vec", "rst"),
+        pair_demand_vec=total("demand_vec", "rst"),
         candidates=n_cand,
-        tri_count=st_e["count"] + st_l["count"],
-        pair_count=rst_e["pair_count"] + rst_l["pair_count"],
+        tri_count=total("count"),
+        pair_count=total("pair_count", "rst"),
     )
-    return Framebuffer(depth=depth, vis=vis), new_state, stats, attrs
+    return Framebuffer(depth=depth, vis=vis), new_state, stats, attrs, layer
+
+
+def debug_inputs(capture: dict):
+    """(tc, setup) of a captured frame for shade.debug_visualize: every
+    pass's cluster metadata and setup outputs concatenated in fragment-id
+    order, each pass's triangle cluster index shifted by the cluster
+    capacities before it (frame.py:423-429)."""
+    tcs = [tc for tc, _ in capture["setup"]]
+    k_off = [0]
+    for cap in capture["cluster_capacity"][:-1]:
+        k_off.append(k_off[-1] + cap)
+    tc = {k: torch.cat([t[k] for t in tcs]) for k in ("mi", "draw_id")}
+    setup_all = dict(tri_k=torch.cat([st["tri_k"] + off for st, off in zip(capture["setup_out"], k_off)]))
+    return tc, setup_all
 
 
 def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cfg: FrameConfig,
@@ -257,11 +336,23 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     resolve at half resolution (frame.py:647-663, where the 3-tuple rides
     in `bvh`); without a map the frame is unshadowed, as the reference's.
     With `cfg.bloom` the bloom of the masked g0 joins the composite
-    (frame.py:643-646).  `capture` receives frame_core's kernel inputs, g0
-    ("g0") and the shadow term ("shadow", None when unshadowed).  Returns
-    (image [H,W,3], fb, new_state, stats)."""
-    fb, new_state, stats, attrs = frame_core(scene, state, params, cfg, capture=capture)
-    g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures)
+    (frame.py:643-646).  With post_passes=3 the transmission layer gets its
+    own G-buffer from its own depth (frame.py:617-629) and blends in the
+    composite.  `capture` receives frame_core's kernel inputs, g0 ("g0"),
+    the shade-time valid mask ("valid"), the shadow term ("shadow", None
+    when unshadowed) and the layer ("layer": its depth, vis and valid mask,
+    or None).  Returns (image
+    [H,W,3], fb, new_state, stats)."""
+    fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture)
+    ivp = shade_params.inverse_view_projection
+    transmission = None
+    if layer is not None:
+        g0t, g1t, valid_t = shade.gbuffer_from_attrs(layer["attrs"], layer["vis"] != INVALID_FRAG, scene,
+                                                     textures=textures, depth=layer["depth"],
+                                                     inverse_view_projection=ivp)
+        transmission = (g0t, g1t, layer["depth"], valid_t)
+    g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures, depth=fb.depth,
+                                             inverse_view_projection=ivp)
     bloom_img = None
     if cfg.bloom:
         bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
@@ -270,15 +361,16 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     if cfg.shadows and sun is not None:
         sf, packed, map_shape = sun
         shadow = sunmap.shadow_map_pass(
-            fb.depth, sf, None, inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width,
+            fb.depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
     if capture is not None:
-        capture.update(g0=g0, shadow=shadow)
+        capture.update(g0=g0, shadow=shadow, valid=valid,
+                       layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))
     image = shade.composite(
         g0, g1, fb.depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
-        inverse_view_projection=shade_params.inverse_view_projection, width=cfg.width, height=cfg.height,
-        shadow=shadow, bloom=bloom_img,
+        inverse_view_projection=ivp, width=cfg.width, height=cfg.height,
+        shadow=shadow, bloom=bloom_img, transmission=transmission,
     )
     return image, fb, new_state, stats
 

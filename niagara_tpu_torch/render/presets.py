@@ -1,10 +1,54 @@
-"""Capacity policies (niagara_tpu/render/presets.py): the 1M-draw headline
-frame's, the sun map's per-frame update's, the small test frame's, and
-`scene_capacities` for cooked scenes such as the glTF city."""
+"""Named configurations and capacity policies (niagara_tpu/render/presets.py):
+`settings_for` and `frame_overrides` map the reference's staged configs
+0-5 onto RenderSettings and FrameConfig overrides (presets.py:26-53); the
+capacity policies of the 1M-draw headline frame, the sun map's per-frame
+update, the small test frame, and `scene_capacities` for cooked scenes
+such as the glTF city.
+
+The configs: 0 renders everything, no culling, every draw at LOD 0 in one
+pass; 1 frustum, cone and LOD culling in one pass; 2 adds two-pass
+occlusion culling; 3 the textured, alpha-classed content (the scene's own
+classes); 4 and 5 animation and sun shadows.  Configs 1 and 2 give the
+same depth (occlusion removes only what loses the depth test anyway).
+"""
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
+
+from .camera import RenderSettings
+
+#: config id -> RenderSettings field overrides (presets.py:26)
+_SETTINGS = {
+    0: dict(culling=False, lod=False, occlusion=False, cluster_occlusion=False, cluster_backface=False),
+    1: dict(occlusion=False, cluster_occlusion=False),
+    2: dict(),
+    3: dict(),
+    4: dict(),
+    5: dict(),
+}
+
+#: config id -> FrameConfig field overrides, applied by the caller (presets.py:37)
+_FRAME = {
+    0: dict(occlusion_two_pass=False, post_passes=1),
+    1: dict(occlusion_two_pass=False),
+    2: dict(),
+    3: dict(),  # textures and the alpha class follow the scene's content
+    4: dict(shadows=True),
+    5: dict(shadows=True),
+}
+
+
+def settings_for(config: int, base: RenderSettings | None = None) -> RenderSettings:
+    """`base` (default RenderSettings()) with config N's toggles."""
+    return replace(base or RenderSettings(), **_SETTINGS[int(config)])
+
+
+def frame_overrides(config: int) -> dict:
+    """Config N's FrameConfig fields (a fresh dict)."""
+    return dict(_FRAME[int(config)])
 
 
 # pair-emission class budgets (tiny2, small, midA, midB) of the 1M-draw

@@ -21,6 +21,17 @@ def quat_identity() -> np.ndarray:
     return np.array([0, 0, 0, 1], dtype=F)
 
 
+def quat_axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Quaternion (xyzw) of a rotation by `angle` radians about the unit
+    `axis` (math3d.py:32)."""
+    axis = np.asarray(axis, dtype=F)
+    h = F(angle) * F(0.5)
+    q = np.empty(axis.shape[:-1] + (4,), dtype=F)
+    q[..., :3] = axis * F(np.sin(h))
+    q[..., 3] = np.cos(h)
+    return q
+
+
 def quat_to_mat3(q: np.ndarray) -> np.ndarray:
     x, y, z, w = (F(q[i]) for i in range(4))
     return np.array(

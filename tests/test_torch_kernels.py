@@ -12,7 +12,12 @@ boxes over many tiles and a band; setup with part-filled and wholly
 culled clusters, more triangles than capacity, an odd live cluster count
 and a single live cluster; shade with 1 to 4 seeded random record streams,
 ids in the gaps between them, uncovered pixels, degenerate records and a
-framebuffer one tile wide.  The bloom kernels (csrc/bloom.cu) against
+framebuffer one tile wide.  The transmission frame (small_glass_scene,
+post_passes=3): every pass's setup and raster, the third group's into its
+own layer, and the layer's one-stream shade against their plain versions,
+and the normal-mapped frame on the card against the CPU; the single-pass
+early pass of configs 0 and 1; the viewer on the card (PNGs, CUDA-event
+frame times, debug views and HUD equal to the CPU's).  The bloom kernels (csrc/bloom.cu) against
 their plain versions bit for bit on seeded nonzero inputs at odd sizes,
 and compute_bloom's kernel path against its plain path.  And the G-buffer
 and composite on the card against the CPU: the emissive channel's and the
@@ -31,7 +36,7 @@ import torch
 
 from niagara_tpu_torch import _build, cooker, scene
 from niagara_tpu_torch.ops import bloom, cullmath, raster_tile, setup, shade
-from niagara_tpu_torch.render import animation, camera, frame, presets, textures
+from niagara_tpu_torch.render import animation, camera, frame, hud, presets, textures
 from test_torch_raster_box import crafted_setup, screen_triangles
 
 W, H = 256, 128
@@ -432,3 +437,108 @@ def test_animation_on_the_card_matches_cpu(captured):
         assert float((moved.draw_position[live].cpu() - cpu[1][live]).abs().max()) <= 2e-6
         assert float((moved.draw_orientation[live].cpu() - cpu[3][live]).abs().max()) <= 2e-6
         assert torch.equal(moved.draw_xform_row[2:], tds.draw_xform_row[2:])
+
+
+def _glass_frames(tmp_path, device):
+    """Two frames of cooker.small_glass_scene (post_passes=3) on `device`,
+    captured."""
+    g = cooker.cook_procedural(str(tmp_path))
+    g, draws, materials, masks, mips = cooker.small_glass_scene(g)
+    table = textures.build_texture_table(mips)
+    tds = scene.from_numpy(scene.upload(g, draws, materials, masks, texture_table=table), device)
+    cfg = frame.FrameConfig(width=W, height=H, post_passes=3, **presets.small_capacities())
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    state = frame.init_state(tds.num_draws, tds.meshlet_visibility_count, device)
+    tex = textures.to_device(table, device)
+    capture = {}
+    for _ in range(2):
+        image, _, state, _ = frame.render_frame(tds, state, params, sp, cfg, textures=tex, capture=capture)
+    return tds, params, sp, cfg, tex, capture, image
+
+
+def test_glass_kernels_match_plain(tmp_path):
+    """The transmission frame's kernel calls: the third group's setup (the
+    alpha variant: the scene has masks) and its opaque-variant raster into
+    the cleared layer, and the layer's one-stream shade, each equal to its
+    plain version; the first two passes too."""
+    _need_cuda()
+    tds, params, _, cfg, _, capture, _ = _glass_frames(tmp_path, DEV)
+    tx = cfg.width // 128
+    assert capture["passes"] == ["early", "late", "glass"]
+    assert capture["raster_alpha_test"] == (False, True, False)
+    for tc, cap in capture["setup"]:
+        got = setup.setup_cuda(tc, tds, params, W, H, cap)
+        ref = setup.setup_plain(tc, tds, params, W, H, cap)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    ts, pt, rec, off, d0, v0 = capture["raster"][2]
+    assert off == cfg.tri_capacity + cfg.late_tri_cap and not bool((v0 != 0x7FFFFFFF).any())
+    for args, alpha in zip(capture["raster"], capture["raster_alpha_test"]):
+        kd, kv = raster_tile.raster_cuda(*args, tx, alpha_test=alpha)
+        pd, pv = raster_tile.raster_plain(*args, tx, alpha_test=alpha)
+        assert torch.equal(kv, pv) and torch.equal(kd, pd)
+    for streams, vis in (capture["shade"], capture["shade_layer"]):
+        assert torch.equal(_bits(raster_tile.shade_cuda(streams, vis)), _bits(raster_tile.shade_plain(streams, vis)))
+    assert len(capture["shade_layer"][0]) == 1 and int((capture["shade_layer"][1] != 0x7FFFFFFF).sum()) > 500
+
+
+def test_glass_frame_on_the_card_matches_cpu(tmp_path):
+    """The normal-mapped transmission frame on the card against the CPU:
+    the layer's depth and vis and the shade-time masks exact, the image
+    within 2e-6 (pow, exp2 and the sRGB decode differ between the math
+    libraries; the tangent frame's square roots and divisions are IEEE on
+    both)."""
+    _need_cuda()
+    card = _glass_frames(tmp_path, DEV)
+    cpu = _glass_frames(tmp_path, "cpu")
+    for k in ("depth", "vis", "valid"):
+        assert torch.equal(card[5]["layer"][k].cpu(), cpu[5]["layer"][k]), k
+    assert torch.equal(card[5]["valid"].cpu(), cpu[5]["valid"])
+    assert float((card[6].cpu() - cpu[6]).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("config", [0, 1])
+def test_single_pass_kernels_match_plain(captured, config):
+    """Configs 0 and 1 (occlusion_two_pass=False): one early pass, its
+    setup, raster and shade equal to their plain versions."""
+    tds = captured[0]
+    cfg = frame.FrameConfig(width=W, height=H, **presets.small_capacities(), **presets.frame_overrides(config))
+    params, sp = frame.make_frame_inputs(camera.Camera(), presets.settings_for(config), cfg)
+    state = frame.init_state(tds.num_draws, tds.meshlet_visibility_count, DEV)
+    capture = {}
+    for _ in range(2):
+        _, _, state, _ = frame.render_frame(tds, state, params, sp, cfg, capture=capture)
+    assert capture["passes"] == ["early"]
+    (tc, cap), = capture["setup"]
+    got, ref = setup.setup_cuda(tc, tds, params, W, H, cap), setup.setup_plain(tc, tds, params, W, H, cap)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    args = (*capture["raster"][0], W // 128)
+    assert all(torch.equal(a, b) for a, b in zip(raster_tile.raster_cuda(*args), raster_tile.raster_plain(*args)))
+    streams, vis = capture["shade"]
+    assert torch.equal(_bits(raster_tile.shade_cuda(streams, vis)), _bits(raster_tile.shade_plain(streams, vis)))
+
+
+def test_viewer_on_the_card(captured, tmp_path, monkeypatch):
+    """render_scene on its default device: PNGs with the HUD, frame times
+    from CUDA events, the debug view equal to the CPU's on the same
+    inputs, and the HUD bit for bit."""
+    from niagara_tpu_torch import render_scene
+
+    cam = tmp_path / "cam.json"
+    at = cooker.synthesize_draws(1, 1).position[0] + np.float32([0, 0, 6])
+    camera.save_camera(str(cam), camera.Camera(position=at))
+    monkeypatch.setattr(render_scene, "VIEWER_CAPACITIES", presets.small_capacities())
+    r = render_scene.run(["--size", f"{W}x{H}", "--draws", "300", "--frames", "2",
+                          "--out", str(tmp_path), "--camera", str(cam)])
+    assert r["fb"].vis.device.type == "cuda" and len(r["paths"]) == 2 and min(r["frame_ms"]) > 0
+    capture = {}
+    fb = frame.frame_core(r["scene"], frame.init_state(r["scene"].num_draws, r["scene"].meshlet_visibility_count, DEV),
+                          r["params"], r["cfg"], capture=capture)[0]
+    tc, st = frame.debug_inputs(capture)
+    for mode in ("meshlet", "draw", "depth"):
+        card = shade.debug_visualize(fb, tc, st, mode).cpu()
+        cpu_fb = type(fb)(depth=fb.depth.cpu(), vis=fb.vis.cpu())
+        cpu = shade.debug_visualize(cpu_fb, {k: v.cpu() for k, v in tc.items()}, {"tri_k": st["tri_k"].cpu()}, mode)
+        assert torch.equal(card, cpu), mode
+    img = r["image"]
+    assert torch.equal(hud.draw_hud(img, ["frame 1.23 ms"]).cpu(), hud.draw_hud(img.cpu(), ["frame 1.23 ms"]))

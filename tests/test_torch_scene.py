@@ -3,12 +3,21 @@
 Also holds the parity scene the other tests/test_torch_*.py files share:
 the port's small scene (cooker.small_scene_draws: 48 draws of the
 procedural mesh in view of the default camera) at 256x128 with
-presets.small_capacities()."""
+presets.small_capacities().
+
+Importing it builds and loads the JAX package's C++ cooker once under a
+file lock (`jax_cooker_ready`): that package's `get_lib` runs make on
+first use and writes libcooker.so in place, so a second test process that
+loaded it meanwhile got "file too short" and failed every test of its
+file.  Every test process collects this module before it runs a test."""
 
 import copy
+import fcntl
 import os
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +33,29 @@ from niagara_tpu_torch import cooker, scene
 from niagara_tpu_torch.render import camera, presets, textures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_cooker_ready(timeout: float = 300.0):
+    """The JAX package's cooker library, built and loaded under a lock file
+    in the temporary directory that every test process of a run takes in
+    turn.  A load that meets a library half written by a process outside
+    the lock (OSError), or a make that collides with one (CalledProcessError),
+    is retried until `timeout` seconds have passed."""
+    from niagara_tpu.cooker import bindings as jbindings
+
+    with open(os.path.join(tempfile.gettempdir(), "niagara_tpu_cooker.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return jbindings.get_lib()
+            except (OSError, subprocess.CalledProcessError):
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(2.0)
+
+
+jax_cooker_ready()
 
 W, H = 256, 128
 N_DRAWS = 48
