@@ -127,6 +127,28 @@ Phases, each reported on its own line:
                    (pair_drop_vec too), demand beside the reference's counts;
   city kernels  -- setup, raster and shade replayed on the city's
                    transitional and steady frames, exact;
+  rt small      -- the small scene ray-traced (FrameConfig.shadows with a
+                   ShadowBVH of its draws, ops/shadow.py), two 256x128
+                   frames, kernels on the card against the plain path on the
+                   CPU: stats, state, vis, depth and every traced flag
+                   exact, the shadow term and image within 2e-6; "rt alpha
+                   small" the small alpha scene with the quality-1 any-hit;
+  rt scene/rt pass/rt main -- bench.py's BENCH_SHADOW block on the opaque
+                   1M-draw frame: build_scene_rt and refit_tlas on the host
+                   (timed, as bench.py prints "TLAS build" and "refit"), the
+                   BVH uploaded; shadow_pass(scale=2, chunked=True: a
+                   2,048-step budget) on the steady frame's depth; then five
+                   chained frames of render_frame(bvh=...) from the steady
+                   state with the counters at zero: loss-free, shadow and
+                   light in the covered pixels, one trace launch a frame;
+  rt kernels    -- the last of those frames' rays replayed: the kernel
+                   (csrc/trace.cu, trace_any_hit<false>) against
+                   trace_plain on the card, every flag and step count equal;
+                   rays, steps per ray, the share out of budget, kernel and
+                   plain times, the bound from trace_plain's counters; then
+                   trace_any_hit<true> on the rays of "rt alpha": the alpha
+                   frame's 1M draws with their masks, three frames with the
+                   quality-1 any-hit (one trace_alpha launch a frame);
   profile       -- torch.profiler over five more frames of each path (and
                    of the sun path's update + splice alone): device ops and
                    kernel launches per frame, device busy time and idle
@@ -193,6 +215,16 @@ CITY_REFERENCE = ("15,876 draws, 289,025 meshlets, 312 materials, 312 textures, 
                   "1,857/131,072, pairs 77,292/262,144, class demand [31, 69, 149, 1013, 445, 150], giant cap 256")
 # bloom's launches over frames 2-4: 7 levels down, 7 up, 1 expansion a frame
 BLOOM_LAUNCHES = {"bloom_down": 21, "bloom_up": 21, "bloom_x2": 3}
+# trace.cu's f32 operations per unit of a ray's walk, counted from the
+# source: a node step (slab test: 6 sub, 6 mul, 6 min/max, 6 min/max for
+# tnear/tfar, a compare), a triangle test (two crosses, four dots, a
+# division, 3 sub, 5 compares and an add), an instance entry (two
+# conjugate rotations, 3 sub, 6 divisions), a mask test (the hit's uv,
+# two cells); the bytes of each row it reads, and a ray's own: origin and
+# direction in, flag and step count out
+TRACE_OPS = {"nodes": 25, "tris": 52, "instances": 69, "masks": 24}
+TRACE_ROW_BYTES = {"nodes": 32, "tris": 48, "instances": 48, "masks": 64}
+TRACE_RAY_BYTES = 24 + 1 + 4
 # the render size of the glass and configs paths
 FULL = (1920, 1080)
 # the configs path: torus draws and the camera's distance in front of the
@@ -200,15 +232,27 @@ FULL = (1920, 1080)
 # torus's) against the viewer's candidate budget of 65,536 clusters: up to
 # 60 draws fit; 48 leave 20% headroom
 CONFIG_DRAWS, CONFIG_VIEW = 48, 12.0
+STARTED = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, after the seconds since the script started
+    (the city's host preparation runs on a thread beside the paths, so a
+    path's host-bound frame times depend on when it runs)."""
+    print(f"[{phase}] {time.perf_counter() - STARTED:.1f} s | {msg}", flush=True)
 
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def launch_counts(**counts) -> dict:
+    """Every kernel's launch counter (_build.LAUNCHES), 0 but for `counts`."""
+    from niagara_tpu_torch import _build
+
+    check(set(counts) <= set(_build.LAUNCHES), f"unknown kernels {sorted(set(counts) - set(_build.LAUNCHES))}")
+    return {k: counts.get(k, 0) for k in _build.LAUNCHES}
 
 
 def nvidia_smi() -> str:
@@ -226,7 +270,8 @@ def ptxas_resources(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("setup_kernel", "setup_scatter", "setup_count", "setup_scan", "raster_tile",
-                                     "shade_px", "bloom_down", "bloom_up", "bloom_x2") if k in mangled), mangled)
+                                     "shade_px", "bloom_down", "bloom_up", "bloom_x2", "trace_any_hit")
+                         if k in mangled), mangled)
             name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
             spill = ""
         elif name and "spill" in line:
@@ -376,7 +421,7 @@ def main() -> int:
         cook_pool.shutdown(wait=True, cancel_futures=True)
 
     order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade", "bloom_down",
-             "bloom_up", "bloom_x2")
+             "bloom_up", "bloom_x2", "trace", "trace_alpha")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -390,7 +435,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     import torch
 
     from niagara_tpu_torch import _build, cooker, scene
-    from niagara_tpu_torch.ops import bloom, raster_tile, setup, sunmap
+    from niagara_tpu_torch.ops import bloom, raster_tile, setup, shadow, sunmap
     from niagara_tpu_torch.render import camera, frame, presets, textures
 
     t0 = time.perf_counter()
@@ -401,12 +446,12 @@ def run_all(base, city_job, dev, smi) -> dict:
     log("scene", f"{ds.num_draws} draws, {ds.num_meshlets} meshlets, lod0 triangles "
         f"{int(geometry.meshes.lod_index_count[0, 0]) // 3}, {time.perf_counter() - t0:.1f} s")
 
-    small_reference("small", dev, scene.upload(geometry, cooker.small_scene_draws(geometry.meshes.count)), None,
+    small_draws = cooker.small_scene_draws(geometry.meshes.count)
+    small_reference("small", dev, scene.upload(geometry, small_draws), None,
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = dict(setup=6, setup_alpha=0, raster=6, raster_alpha=0, raster_window=0, raster_alpha_window=0, shade=3,
-                    **BLOOM_LAUNCHES)
+    expected = launch_counts(setup=6, raster=6, shade=3, **BLOOM_LAUNCHES)
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
@@ -414,15 +459,36 @@ def run_all(base, city_job, dev, smi) -> dict:
     kernels = {r["name"]: dict(r, path="opaque", launches=opaque["launches"][r["name"]]) for r in rows}
     profile_frames("profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], cfg)[2],
                    opaque["state"])
-    del ds, opaque
+
+    # the ray-traced frame: the opaque frame shadowed through the BVH of its
+    # draws (bench.py:363-390, BENCH_SHADOW), from its steady state
+    small_reference("rt small", dev, scene.upload(geometry, small_draws), None,
+                    frame.FrameConfig(width=256, height=128, shadows=True, **presets.small_capacities()),
+                    scene, camera, frame, bvh=shadow.build_scene_rt(geometry, small_draws)[0])
+    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
+    rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
+                shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
+    kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow), path="rt",
+                            launches=rt["launches"]["trace"])
+    profile_frames("rt profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], rt["cfg"],
+                                                                 bvh=rt["bvh"])[2], rt["state"])
+    del ds, opaque, rt
     torch.cuda.empty_cache()
 
-    # the textured, alpha-classed frame
+    # the textured, alpha-classed frame.  The city's preparation thread
+    # holds the interpreter lock for seconds at a time near its end (decode,
+    # bake, layout), which stalled host-bound frames by up to 1.7 s and the
+    # profiled ones by 7x: from here on the paths run after it
+    city_job.result()
     ga, da, mats, masks, mips = cooker.small_alpha_scene(geometry)
     small_table = textures.build_texture_table(mips)
     small_reference("alpha small", dev, scene.upload(ga, da, mats, masks, texture_table=small_table), small_table,
                     frame.FrameConfig(width=256, height=128, post_passes=2, **presets.small_capacities()),
                     scene, camera, frame)
+    small_reference("rt alpha small", dev, scene.upload(ga, da, mats, masks, texture_table=small_table), small_table,
+                    frame.FrameConfig(width=256, height=128, post_passes=2, shadows=True, shadow_quality=1,
+                                      **presets.small_capacities()),
+                    scene, camera, frame, bvh=shadow.build_scene_rt(ga, da, mats, mips)[0])
 
     t0 = time.perf_counter()
     ga, da, mats, masks, mips = cooker.alpha_scene(geometry, draws)
@@ -434,8 +500,7 @@ def run_all(base, city_job, dev, smi) -> dict:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=0, shade=3,
-                    **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **BLOOM_LAUNCHES)
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
@@ -450,7 +515,14 @@ def run_all(base, city_job, dev, smi) -> dict:
         kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
-    del alpha
+    # the alpha frame ray-traced with the quality-1 any-hit through the masks
+    per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, trace_alpha=1,
+                              **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
+    rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
+                 _build, smi, per_frame, 3, mats=mats, mips=mips)
+    kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow),
+                                  path="rt alpha", launches=rta["launches"]["trace_alpha"])
+    del alpha, rta
     torch.cuda.empty_cache()
 
     # the shadowed, animated textured frame: the sun map
@@ -499,8 +571,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     caps = presets.scene_capacities(sd.geometry, sd.draws)
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **caps)
     log("city scene", f"capacities {caps}")
-    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=0, shade=3,
-                    **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **BLOOM_LAUNCHES)
     cam = camera.Camera(position=sd.camera_position, orientation=sd.camera_orientation)
     path = run_path("city ", ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=cam,
                     sun_direction=sd.sun_direction)
@@ -552,8 +623,7 @@ def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
     caps = presets.headline_capacities(ds.num_draws)
     cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=3, **caps)
     log("glass scene", f"capacities {caps}")
-    expected = dict(setup=0, setup_alpha=9, raster=6, raster_alpha=3, raster_window=0, raster_alpha_window=0,
-                    shade=6, **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **BLOOM_LAUNCHES)
     path = run_path("glass ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     s, steady = path["stats"], path["steady"]
     for name, st, (ts, *_), (tc, cap) in zip(steady["passes"], steady["setup_out"], steady["raster"],
@@ -624,8 +694,8 @@ def run_configs(kernels, dev, smi) -> None:
         per[config] = (r, capture, launches)
         depth[config] = r["fb"].depth
         n = 1 if config < 2 else 2
-        expected = dict(setup=2 * n, setup_alpha=0, raster=2 * n, raster_alpha=0, raster_window=0,
-                        raster_alpha_window=0, shade=2, **{k: 2 * v // 3 for k, v in BLOOM_LAUNCHES.items()})
+        expected = launch_counts(setup=2 * n, raster=2 * n, shade=2,
+                                 **{k: 2 * v // 3 for k, v in BLOOM_LAUNCHES.items()})
         log("configs", f"config {config}: {CONFIG_DRAWS} draws, frame ms (CUDA events) {r['frame_ms']}, "
             f"{secs:.1f} s with the PNGs | {frame_line(s)} covered_px {int((r['fb'].vis != INVALID).sum())} | passes "
             f"{capture['passes']} | launches {launches} (expected {expected}) on {smi}")
@@ -705,6 +775,7 @@ def prepare_city(out_dir: str, params: dict, cook_pool=None) -> dict:
     masks = step("bake", opacity.bake_opacity, sd.geometry, sd.draws, sd.materials, mips)
     table = step("table", textures.build_texture_table, mips)
     np_scene = step("layout", scene.upload, sd.geometry, sd.draws, sd.materials, masks, texture_table=table)
+    secs["done at"] = round(time.perf_counter() - STARTED, 1)
     return dict(sd=sd, table=table, scene=np_scene, seconds=secs)
 
 
@@ -759,13 +830,15 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=N
 
 
 def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=None, sun_direction=None,
-                    settings=None) -> None:
+                    settings=None, bvh=None) -> None:
     """256x128, two frames: kernels on the card vs the plain path on the
     CPU, from `cam` (default: the headline camera) with `settings`
     (default RenderSettings()).  With a texture table (an alpha-classed
     scene) the masks must discard: with them cleared the same frame covers
     other pixels.  With post_passes=3 the transmission layer's depth and
-    vis must match too."""
+    vis must match too.  With `bvh` (a host ShadowBVH; cfg.shadows) the
+    frames are ray-traced: every traced flag must match, the shadow term
+    within 2e-6, with shadow and light in it."""
     import dataclasses
 
     import torch
@@ -782,10 +855,13 @@ def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=No
         cap = {}
         for _ in range(2):
             state_in = st
-            img, fb, st, stats = frame.render_frame(sc, st, params, sp, cfg, textures=tex, capture=cap)
+            img, fb, st, stats = frame.render_frame(sc, st, params, sp, cfg, textures=tex,
+                                                    bvh=None if bvh is None else bvh.to(where), capture=cap)
         layer = cap["layer"] and (cap["layer"]["depth"].cpu(), cap["layer"]["vis"].cpu())
-        runs[str(where)] = (img.cpu(), fb.depth.cpu(), fb.vis.cpu(), stats.to_dict(), frame.state_to_numpy(st), layer)
-    (ci, cd, cv, cs, cst, cl), (gi, gd, gv, gs, gst, gl) = runs["cpu"], runs[str(dev)]
+        rt = bvh and (cap["shadow"].cpu(), cap["trace"]["occluded"].cpu())
+        runs[str(where)] = (img.cpu(), fb.depth.cpu(), fb.vis.cpu(), stats.to_dict(), frame.state_to_numpy(st), layer,
+                            rt)
+    (ci, cd, cv, cs, cst, cl, crt), (gi, gd, gv, gs, gst, gl, grt) = runs["cpu"], runs[str(dev)]
     check(all(np.array_equal(cs[k], gs[k]) for k in cs), "frame stats differ from the CPU plain path")
     check(all(np.array_equal(a, b) for a, b in zip(cst, gst)), "frame state differs from the CPU plain path")
     check(torch.equal(cv, gv), "vis differs from the CPU plain path")
@@ -801,6 +877,15 @@ def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=No
         discarded = int(((nfb.vis != INVALID) & (nfb.vis != fb.vis)).sum())
         extra += f", masks discard {discarded} px (they win them with the masks cleared)"
         check(discarded > 0, "the opacity masks discard nothing")
+    if crt:
+        check(torch.equal(crt[1], grt[1]), "traced flags differ from the CPU plain path")
+        term_err = float((crt[0] - grt[0]).abs().max())
+        covered = cv != INVALID
+        extra += (f", {crt[1].numel()} rays ({int(crt[1].sum())} occluded) equal, shadow term max_abs_err "
+                  f"{term_err:.3g} (tolerance 2e-6), covered px in shadow (term < 0.5) "
+                  f"{int((covered & (crt[0] < 0.5)).sum())}, lit (> 0.99) {int((covered & (crt[0] > 0.99)).sum())}")
+        check(term_err <= 2e-6 and bool((covered & (crt[0] < 0.5)).any()) and bool((covered & (crt[0] > 0.99)).any()),
+              "the small ray-traced frame's shadow term differs or has no shadow and light")
     # depth: every op rounded alike on both sides; image: the composite's
     # pow/exp (and the textures' sRGB decode) differ between the CPU's and
     # the GPU's math libraries (opaque: worst seen 9.24e-7 on an H100)
@@ -1184,8 +1269,8 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
               "image not finite")
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
-    expected = dict(setup=0, setup_alpha=6, raster=3, raster_alpha=3, raster_window=0, raster_alpha_window=3, shade=3,
-                    **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3,
+                             **BLOOM_LAUNCHES)
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")
     check(launches == expected, "kernel launch counts")
@@ -1233,6 +1318,139 @@ def compare_window(tag, sun, raster_tile, base=None) -> dict:
                            replaces="niagara_tpu/ops/raster_tile.py:393", max_abs_err=0.0, ms=ms, plain_ms=pms,
                            bound_ms=bms, bound_by=by, library_ms=None, **({"baseline_ms": base_ms} if base else {}))
     return row
+
+
+def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, shadow, _build, smi, per_frame,
+           n_frames, mats=None, mips=None, depth=None) -> dict:
+    """The ray-traced frame (bench.py:363-390, BENCH_SHADOW): the BVH of
+    the draws built on the host (build_scene_rt, then refit_tlas through
+    its cached path, both timed as bench.py prints them), uploaded; with
+    `depth`, bench.py's side metric shadow_pass(scale=2, chunked=True) on
+    it; then n_frames chained frames of render_frame(bvh=...) from
+    `state`, the counters at zero: each loss-free and finite, shadow and
+    light in the covered pixels, the launches `per_frame` times n_frames.
+    Returns the device BVH, the last frame's trace capture, the state,
+    the launches and the frame times."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    host_bvh, static = shadow.build_scene_rt(geometry, draws, mats, mips)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_bvh = shadow.refit_tlas(static, draws)
+    refit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvh = host_bvh.to(dev)
+    torch.cuda.synchronize()
+    nbytes = sum(getattr(bvh, f).numel() * 4 for f in shadow.TENSOR_FIELDS)
+    log(f"{tag} scene", f"{draws.count} draws -> {bvh.inst_row.shape[0]} instances, {bvh.tlas_base} BLAS nodes, "
+        f"{bvh.nodes.shape[0] - bvh.tlas_base} TLAS nodes, {bvh.tri_v0.shape[0]} triangles, mask rows "
+        f"{bvh.tri_alpha.shape[0]}, {nbytes / 1e6:.1f} MB on the card | TLAS build {build_s:.3f} s (build_scene_rt), "
+        f"refit {refit_s:.3f} s (refit_tlas, cached topology), upload {time.perf_counter() - t0:.3f} s")
+    if depth is not None:
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        cap, ev = {}, [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        term = shadow.shadow_pass(depth, bvh, sun_direction=sp.sun_direction,
+                                  inverse_view_projection=sp.inverse_view_projection, width=cfg.width,
+                                  height=cfg.height, scale=2, chunked=True, capture=cap)
+        ev[1].record()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        occ, steps = shadow.trace_cuda(bvh, cap["trace"]["origin"], cap["trace"]["direction"],
+                                       max_steps=shadow.CHUNKED_STEPS)
+        check(torch.equal(occ, cap["trace"]["occluded"]), "the chunked pass's flags are not reproducible")
+        log(f"{tag} pass", f"shadow_pass(scale=2, chunked=True) on the steady frame's depth: "
+            f"{ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events, first call), launches {launches}, "
+            f"{steps_line(steps, occ, shadow.CHUNKED_STEPS)}, mean term {float(term.mean()):.4f}")
+        check(bool(torch.isfinite(term).all()) and launches.get("trace") == 1, "the chunked pass failed")
+
+    cfg = dataclasses.replace(cfg, shadows=True, shadow_quality=1 if mats is not None else 0)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    frame_ms, cap = [], {}
+    for i in range(n_frames):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        image, fb, state, stats = frame.render_frame(ds, state, params, sp, cfg, textures=tex, bvh=bvh, capture=cap)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        s = stats.to_dict()
+        covered = fb.vis != INVALID
+        term = cap["shadow"][covered]
+        tr = cap["trace"]
+        log(f"{tag} main", f"frame {i}: {frame_ms[-1]:.3f} ms | {frame_line(s)} covered_px {int(covered.sum())} | "
+            f"{tr['origin'].shape[0]} rays, {int(tr['occluded'].sum())} occluded; covered px in shadow (term < 0.5) "
+            f"{float((term < 0.5).float().mean()):.4f}, lit (> 0.99) {float((term > 0.99).float().mean()):.4f}")
+        check(all(int(s[k]) == 0 for k in DROPS) and not s["pair_drop_vec"].any(), f"frame {i} dropped work")
+        check(tuple(image.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(image).all()),
+              "image not finite")
+        check(bool((term < 0.5).any()) and bool((term > 0.99).any()), "no shadow or no light in the covered pixels")
+    launches = dict(_build.LAUNCHES)
+    expected = {k: v * n_frames for k, v in per_frame.items()}
+    log(f"{tag} main", f"launches {launches} (expected {expected}); frame ms {frame_ms} on {smi}")
+    check(launches == expected, "kernel launch counts")
+    return dict(bvh=bvh, trace=cap["trace"], state=state, launches=launches, cfg=cfg, frame_ms=frame_ms)
+
+
+def steps_line(steps, occ, budget: int) -> str:
+    """Rays, occluded share and steps per ray of one trace (steps -1:
+    the budget ran out)."""
+    cut = steps < 0
+    walked = steps.clamp(min=0) + cut.to(steps.dtype) * budget
+    return (f"{steps.numel()} rays, occluded {float(occ.float().mean()):.4f}, steps per ray mean "
+            f"{float(walked.float().mean()):.2f} max {int(walked.max())}, out of budget ({budget}) "
+            f"{int(cut.sum())} ({float(cut.float().mean()):.2e})")
+
+
+def compare_trace(tag, label, bvh, trace, shadow) -> dict:
+    """A frame's trace replayed: the kernel (trace_any_hit<alpha_test>)
+    against trace_plain on the same card tensors, every flag and step
+    count equal; the kernel's time behind the spin kernel, the plain loop's
+    time, and the bound.  Bytes: each distinct node (32 B), triangle
+    (48 B), instance (48 B) and mask + uv row (64 B) the walk touches read
+    once, each ray's origin and direction read and its flag and step count
+    written (29 B); the rows every ray fetches, counted per ray, give a
+    second, looser figure.  Operations: TRACE_OPS per node step, triangle
+    test, instance entry and mask test, counted per ray by trace_plain."""
+    import torch
+
+    o, d, alpha, budget = trace["origin"], trace["direction"], trace["alpha_test"], trace["max_steps"]
+    name = "trace_alpha" if alpha else "trace"
+    k_occ, k_steps = shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha)
+    check(torch.equal(k_occ, trace["occluded"]), f"{name}: the replay differs from the frame's flags")
+    t0 = time.perf_counter()
+    p_occ, p_steps, counts = shadow.trace_plain(bvh, o, d, max_steps=budget, alpha_test=alpha, counters=True)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    check(torch.equal(k_occ, p_occ) and torch.equal(k_steps, p_steps), f"{name}: differs from trace_plain")
+    n = o.shape[0]
+    per_ray = {k: float(counts[k].double().sum()) for k in TRACE_OPS}
+    rows = {"nodes": "node_rows", "tris": "tri_rows", "instances": "inst_rows", "masks": "mask_rows"}
+    distinct = {k: int(counts[rows[k]].sum()) for k in TRACE_OPS}
+    nbytes = sum(distinct[k] * TRACE_ROW_BYTES[k] for k in TRACE_OPS) + n * TRACE_RAY_BYTES
+    fetched = sum(per_ray[k] * TRACE_ROW_BYTES[k] for k in TRACE_OPS) + n * TRACE_RAY_BYTES
+    ops = sum(per_ray[k] * TRACE_OPS[k] for k in TRACE_OPS)
+    bms, by = bound(nbytes, ops)
+    fetched_ms = bound(fetched, ops)[0]
+    ms = cuda_ms(lambda: shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha), 10)
+    plain_ms = cuda_ms(lambda: shadow.trace_plain(bvh, o, d, max_steps=budget, alpha_test=alpha), 1)
+    log(tag, f"{label} {name}: {steps_line(p_steps, p_occ, budget)}; kernel flags and step counts equal trace_plain's "
+        f"(max_abs_err 0.0); per ray {', '.join(f'{k} {per_ray[k] / n:.2f}' for k in TRACE_OPS)}; distinct rows "
+        f"{distinct}")
+    log(tag, f"{label} {name}: kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms (with counters {counted_s * 1e3:.1f} ms), "
+        f"bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB read once, {ops / 1e9:.3f} Gop), share {bms / ms:.1%}; "
+        f"the rows each ray fetches: {fetched / 1e6:.1f} MB, {fetched_ms:.4f} ms, share {fetched_ms / ms:.1%}")
+    return dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/trace.cu",
+                replaces="niagara_tpu/ops/shadow.py:320", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, fetched_bound_ms=fetched_ms, rays=n,
+                steps_mean=float(p_steps.clamp(min=0).double().mean() + (p_steps < 0).double().mean() * budget),
+                steps_max=int(p_steps.max()) if not bool((p_steps < 0).any()) else budget,
+                out_of_budget=float((p_steps < 0).double().mean()))
 
 
 def compare_bloom(tag, g0, width: int, height: int, bloom, _build) -> list[dict]:

@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu")
+SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu")
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
@@ -40,15 +40,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # are the two static instances of setup.cu's and raster.cu's kernels;
 # raster_window / raster_alpha_window count the same instances launched on a
 # band of tile rows (the row_window variant, the sun map's band update);
-# bloom_down / bloom_up / bloom_x2 are bloom.cu's three filters
+# bloom_down / bloom_up / bloom_x2 are bloom.cu's three filters; trace /
+# trace_alpha the two instances of trace.cu's BVH walk
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
-            "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_x2": 0}
+            "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_x2": 0, "trace": 0,
+            "trace_alpha": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
 _lib = None
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 SHADE_STREAMS = 4  # kMaxStreams in csrc/shade.cu
@@ -104,6 +106,9 @@ _SIGNATURES = {
     "bloom_up_launch": [P, I, I, I, P, P, I, I, UpWeights, P],
     # src, c, h, w, out, oh, ow, weights, stream
     "bloom_x2_launch": [P, I, I, I, P, I, I, X2Weights, P],
+    # nodes, n_nodes, tlas_base, tris, n_tris, inst, n_inst, uv, alpha, n_alpha, origin, direction, n_rays,
+    # t_min, t_max, max_steps, alpha_test, occluded, steps, stream
+    "trace_launch": [P, I, I, P, I, P, I, P, P, I, P, P, I, F, F, I, I, P, P, P],
 }
 
 

@@ -1,12 +1,12 @@
 """ctypes bindings for the port's C++ cooker (native/, a copy of the
-reference's cook path and DDS decoder).
+reference's cook path, BVH builders and DDS decoder).
 
 The library is built by g++ at first use into niagara_tpu_torch/build/,
 under a name carrying the hash of the sources and flags, so a changed
 source rebuilds it and nothing is written outside the port's build
 directory.  The dtypes and structures mirror native/cooker.h (and
-niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` / `load_dds`
-these are).
+niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` / `load_dds` /
+`build_bvh` / `build_bvh_boxes` / `refit_bvh_boxes` these are).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(_HERE, "native")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
-SOURCES = ("cooker.cpp", "meshlet.cpp", "simplify.cpp", "textures.cpp", "bc7.cpp", "bc6h.cpp")
+SOURCES = ("cooker.cpp", "meshlet.cpp", "simplify.cpp", "bvh.cpp", "textures.cpp", "bc7.cpp", "bc6h.cpp")
 HEADERS = ("cooker.h", "half.h")
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
@@ -101,6 +101,13 @@ def get_lib() -> ctypes.CDLL:
             lib.ck_load_dds.restype = ctypes.POINTER(ctypes.c_uint8)
             lib.ck_load_dds.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
             lib.ck_free_rgba.argtypes = [ctypes.c_void_p]
+            P, U32 = ctypes.c_void_p, ctypes.c_uint32
+            lib.ck_build_bvh.restype = U32
+            lib.ck_build_bvh.argtypes = [P, U32, P, U32, P, U32, P]
+            lib.ck_build_bvh_boxes.restype = U32
+            lib.ck_build_bvh_boxes.argtypes = [P, U32, U32, P, U32, P]
+            lib.ck_refit_bvh_boxes.restype = None
+            lib.ck_refit_bvh_boxes.argtypes = [P, U32, P, U32]
             _lib = lib
     return _lib
 
@@ -177,3 +184,62 @@ def load_dds(path: str) -> tuple[list[np.ndarray], int]:
         out.append(flat[off * 4:(off + mw * mh) * 4].reshape(mh, mw, 4))
         off += mw * mh
     return out, fmt
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _grow(build, count: int, min_cap: int):
+    """Call build(nodes, cap, order) with a node buffer doubled until the
+    builder's node count fits (it returns ~0 when it does not)."""
+    cap = max(2 * count + 8, min_cap)
+    while True:
+        nodes = np.zeros((cap, 8), dtype=np.float32)
+        order = np.zeros(count, dtype=np.uint32)
+        n = build(nodes, cap, order)
+        if n != 0xFFFFFFFF:
+            return nodes[:n], order
+        cap *= 2
+
+
+def build_bvh(positions: np.ndarray, indices: np.ndarray):
+    """Skip-pointer BVH over a triangle soup (bindings.py:284): (nodes
+    [N, 8] f32 -- box min/max, skip and leaf as int32 bits -- and the
+    leaf-order triangle permutation [T] u32)."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, dtype=np.float32)
+    indices = np.ascontiguousarray(indices, dtype=np.uint32)
+    return _grow(lambda nodes, cap, order: lib.ck_build_bvh(_ptr(positions), len(positions), _ptr(indices),
+                                                            len(indices), _ptr(nodes), cap, _ptr(order)),
+                 len(indices) // 3, 64)
+
+
+def _boxes(boxes_min: np.ndarray, boxes_max: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.concatenate([np.ascontiguousarray(boxes_min, np.float32),
+                                                np.ascontiguousarray(boxes_max, np.float32)], axis=-1), np.float32)
+
+
+def build_bvh_boxes(boxes_min: np.ndarray, boxes_max: np.ndarray, max_leaf: int = 1):
+    """Skip-pointer BVH over boxes, the TLAS level (bindings.py:314):
+    (nodes [N, 8] f32, the leaf-order box permutation [B] u32); a leaf's
+    word is first * 16 + count over that order."""
+    lib = get_lib()
+    boxes = _boxes(boxes_min, boxes_max)
+    if len(boxes) == 0:
+        return np.zeros((0, 8), np.float32), np.zeros(0, np.uint32)
+    return _grow(lambda nodes, cap, order: lib.ck_build_bvh_boxes(_ptr(boxes), len(boxes), max_leaf, _ptr(nodes),
+                                                                  cap, _ptr(order)),
+                 len(boxes), 64)
+
+
+def refit_bvh_boxes(nodes: np.ndarray, boxes_min: np.ndarray, boxes_max: np.ndarray) -> np.ndarray:
+    """A copy of a build_bvh_boxes tree with its boxes recomputed bottom-up
+    from new leaf boxes given in the build's leaf order, topology kept
+    (bindings.py:344, the reference's per-frame MODE_UPDATE refit)."""
+    lib = get_lib()
+    nodes = np.ascontiguousarray(nodes, np.float32).copy()
+    boxes = _boxes(boxes_min, boxes_max)
+    if len(nodes):
+        lib.ck_refit_bvh_boxes(_ptr(nodes), len(nodes), _ptr(boxes), len(boxes))
+    return nodes

@@ -1,9 +1,8 @@
 // Native geometry cooker — public C ABI consumed from Python via ctypes.
 //
 // The port's own copy of niagara_tpu/cooker/native's cook path (cooker.cpp,
-// meshlet.cpp, simplify.cpp and these headers, unchanged but for the BVH
-// declaration, which the port does not build); cooker/bindings.py builds it
-// with g++ into niagara_tpu_torch/build/.
+// meshlet.cpp, simplify.cpp, bvh.cpp and these headers, unchanged);
+// cooker/bindings.py builds it with g++ into niagara_tpu_torch/build/.
 //
 // TPU-native re-implementation of the reference's content pipeline
 // (reference: src/scene.cpp:24-293 appendMeshlet/appendMeshlets/loadObj/
@@ -135,6 +134,22 @@ extern "C"
 	// normalized simplification error by this gives world units.
 	float ck_simplify_scale(const float* positions, uint32_t vertex_count);
 
+#ifdef __cplusplus
+}
+#endif
+
+#ifdef __cplusplus
+extern "C"
+{
+#endif
+	// Stackless skip-pointer BVH over a triangle soup (see bvh.cpp).
+	// out_nodes: [max_nodes * 8] floats; out_tri_order: [index_count/3] the
+	// leaf-order triangle permutation.  Returns node count, or ~0u if
+	// max_nodes was insufficient.
+	uint32_t ck_build_bvh(const float* positions, uint32_t vertex_count,
+	    const uint32_t* indices, uint32_t index_count,
+	    float* out_nodes, uint32_t max_nodes,
+	    uint32_t* out_tri_order);
 #ifdef __cplusplus
 }
 #endif

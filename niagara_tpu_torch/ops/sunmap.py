@@ -332,17 +332,7 @@ def shadow_map_pass(depth, sf, sun_map, *, inverse_view_projection, width: int, 
     resolution, resolved against the packed table (`packed`, `map_shape`)
     or the map, 1 where nothing was drawn, optionally blurred
     (shadow.shadow_blur), then repeated up to full size."""
-    dev = depth.device
-    sw, sh = width // scale, height // scale
-    d_small = depth[::scale, ::scale][:sh, :sw]
-    ndc_x = cullmath.div(torch.arange(sw, dtype=torch.float32, device=dev) + 0.5, sw)[None, :] * 2 - 1
-    ndc_y = 1 - cullmath.div(torch.arange(sh, dtype=torch.float32, device=dev) + 0.5, sh)[:, None] * 2
-    clip = (ndc_x.expand(sh, sw), ndc_y.expand(sh, sw), d_small)
-    ivp = inverse_view_projection
-    wposh = [clip[0] * float(ivp[i, 0]) + clip[1] * float(ivp[i, 1]) + clip[2] * float(ivp[i, 2])
-             + float(ivp[i, 3]) for i in range(4)]
-    wdiv = torch.where(torch.abs(wposh[3]) < 1e-20, 1e-20, wposh[3])
-    wpos = torch.stack(wposh[:3], dim=-1) / wdiv[..., None]
+    d_small, wpos = shadow.world_positions(depth, inverse_view_projection, width, height, scale)
     if packed is not None:
         mh, mw = map_shape if map_shape is not None else sun_map.shape
         term = sample_shadow_packed(packed, mh, mw, sf, wpos, bias_texels=bias_texels)

@@ -22,8 +22,9 @@ rasterizes into a layer of its own, shaded with one stream and blended in
 the composite (frame.py:376-431, 592-629).  `occlusion_two_pass=False`
 (configs 0 and 1) renders one early pass of every draw the cull passes,
 class 0 only, with no pyramid and no late pass (frame.py:281-290, 561-581).
-Not ported yet: the ray-traced (BVH) shadows.  Fragment ids: early
-records are [0, tri_capacity), the late group g's tri_capacity +
+With `FrameConfig.shadows` and a ShadowBVH (`bvh`, ops/shadow.py) the
+sun's shadow term is ray-traced instead (frame.py:672-685).  Fragment ids:
+early records are [0, tri_capacity), the late group g's tri_capacity +
 g * late_tri_capacity + [0, late_tri_capacity) (frame.py:389).
 """
 
@@ -37,7 +38,7 @@ import torch
 from ..config import TILE_H, TILE_W
 from ..utils import math3d
 
-from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, sunmap
+from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, shadow as shadow_ops, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
 from .camera import Camera, RenderSettings, make_cull_params
 
@@ -78,10 +79,15 @@ class FrameConfig:
     # draw classes: 1 = opaque only; 2 adds the alpha-test class; 3 the
     # transmission class in its own layer
     post_passes: int = 1
-    # sun-map shadows (render_frame's `sun`), blurred by the depth-aware
-    # bilateral filter
+    # sun shadows: the sun map (render_frame's `sun`) or ray-traced against
+    # a ShadowBVH (`bvh`) at 1/shadow_scale resolution, half the pixels
+    # traced with shadow_checkerboard; both blurred by the depth-aware
+    # bilateral filter; shadow_quality 1 traces with the alpha test
     shadows: bool = False
+    shadow_scale: int = 2
+    shadow_checkerboard: bool = True
     shadow_blur: bool = True
+    shadow_quality: int = 0
 
     def __post_init__(self):
         if self.post_passes not in (1, 2, 3):
@@ -328,21 +334,27 @@ def debug_inputs(capture: dict):
 
 
 def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cfg: FrameConfig,
-                 textures=None, sun=None, capture: dict | None = None):
+                 textures=None, sun=None, bvh=None, capture: dict | None = None):
     """Render one frame; `textures` (render.textures.TextureTable on the
     scene's device) textures the materials.  With `cfg.shadows`, `sun` =
     (sun frame, packed map, (map_h, map_w)) -- ops/sunmap.fit_sun_to_draws,
     pack_sun_map or pack_band -- shadows the sun light through the packed
     resolve at half resolution (frame.py:647-663, where the 3-tuple rides
-    in `bvh`); without a map the frame is unshadowed, as the reference's.
+    in `bvh`), and `bvh` (ops/shadow.ShadowBVH on the scene's device)
+    through ops/shadow.shadow_pass (frame.py:672-685); giving both
+    raises; without either the frame is unshadowed, as the reference's.
     With `cfg.bloom` the bloom of the masked g0 joins the composite
     (frame.py:643-646).  With post_passes=3 the transmission layer gets its
     own G-buffer from its own depth (frame.py:617-629) and blends in the
     composite.  `capture` receives frame_core's kernel inputs, g0 ("g0"),
     the shade-time valid mask ("valid"), the shadow term ("shadow", None
-    when unshadowed) and the layer ("layer": its depth, vis and valid mask,
-    or None).  Returns (image
-    [H,W,3], fb, new_state, stats)."""
+    when unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and
+    the layer ("layer": its depth, vis and valid mask, or None).  Returns
+    (image [H,W,3], fb, new_state, stats)."""
+    if sun is not None and bvh is not None:
+        raise ValueError("render_frame: give the sun map (`sun`) or the ray-traced BVH (`bvh`), not both")
+    if capture is not None:
+        capture.pop("trace", None)
     fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture)
     ivp = shade_params.inverse_view_projection
     transmission = None
@@ -363,6 +375,11 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
         shadow = sunmap.shadow_map_pass(
             fb.depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
+    elif cfg.shadows and bvh is not None:
+        shadow = shadow_ops.shadow_pass(
+            fb.depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,
+            height=cfg.height, scale=cfg.shadow_scale, checkerboard=cfg.shadow_checkerboard, blur=cfg.shadow_blur,
+            znear=params.znear, quality=cfg.shadow_quality, capture=capture)
     if capture is not None:
         capture.update(g0=g0, shadow=shadow, valid=valid,
                        layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))

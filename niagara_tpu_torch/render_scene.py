@@ -17,10 +17,12 @@ and as in the reference the frame renders the alpha class when the scene
 has opacity masks (post_passes 2) and the opaque class otherwise, so
 transmission draws are not drawn (FrameConfig(post_passes=3) draws them).
 `--config N` applies the staged configuration N (render/presets.py) minus
-its shadows.  `--shadows` asks for the reference's ray-traced sun
-shadows, which the port does not have yet (ROADMAP A16): it raises.
-`--watch` re-renders in a fresh process whenever a source file of the
-port (.py, .cu, .cpp, .h) or the scene changes.
+its shadows.  `--shadows` ray-traces the sun's shadows against a BVH of
+the scene (ops/shadow.py: one BLAS per mesh, a TLAS over the draws) built
+on the host before the first frame, with the alpha-tested any-hit
+(shadow_quality 1) when the scene has opacity masks.  `--watch`
+re-renders in a fresh process whenever a source file of the port (.py,
+.cu, .cpp, .h) or the scene changes; with `--shadows` it renders once.
 """
 
 from __future__ import annotations
@@ -31,13 +33,14 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 from . import cooker, scene as scene_mod
 from .cooker import opacity
-from .ops import shade
+from .ops import shade, shadow
 from .render import camera as camera_mod, frame, hud, presets, textures
 from .utils import math3d
 from .utils.png import write_png
@@ -66,7 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--camera", default=None, help="camera file (JSON, the reference's format): loaded when it "
                     "exists, written after the last frame")
     ap.add_argument("--shadows", action="store_true",
-                    help="ray-traced sun shadows: not ported yet (ROADMAP A16); raises NotImplementedError")
+                    help="ray-traced sun shadows (a BVH of the scene; alpha-tested with opacity masks); with --watch "
+                    "it renders once")
     ap.add_argument("--debug", default=None, choices=["meshlet", "draw", "depth"], help="debug visualization")
     ap.add_argument("--config", type=int, default=None, choices=range(6),
                     help="staged configuration (render/presets.py): 0 no culling, every draw at LOD 0, one pass; "
@@ -79,10 +83,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def load(args):
-    """(numpy scene, texture table or None, Camera, sun direction or None,
-    opacity masks or None) of the command line's scene."""
-    table = masks = sun = None
+def load(args) -> types.SimpleNamespace:
+    """The command line's scene: `scene` (numpy device layout), `table`
+    (texture table or None), `camera`, `sun` (direction or None), `masks`
+    (opacity masks or None), and what the ray-traced shadows build from:
+    `geometry`, `draws`, `materials` and `mips` (texture mips; None for
+    an .obj scene or the torus)."""
+    table = masks = sun = mips = None
     cam = camera_mod.Camera()
     if args.scene and args.scene[0].endswith((".gltf", ".glb")):
         from .cooker import gltf
@@ -107,7 +114,8 @@ def load(args):
         draws = cooker.synthesize_draws(geometry.meshes.count, draw_count=args.draws)
         materials = None
     np_scene = scene_mod.upload(geometry, draws, materials, masks, texture_table=table)
-    return np_scene, table, cam, sun, masks
+    return types.SimpleNamespace(scene=np_scene, table=table, camera=cam, sun=sun, masks=masks, geometry=geometry,
+                                 draws=draws, materials=materials, mips=mips)
 
 
 def run(argv=None, capture: dict | None = None) -> dict:
@@ -117,9 +125,6 @@ def run(argv=None, capture: dict | None = None) -> dict:
     before the HUD), the device scene, frame inputs and config, the camera,
     each frame's own time (ms) and the profiler's EWMA of them (the HUD's)."""
     args = parse_args(argv)
-    if args.shadows:
-        raise NotImplementedError("--shadows is the reference's ray-traced (BVH) sun shadows, which the port "
-                                  "does not have yet (ROADMAP A16)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("render_scene: torch.cuda.is_available() is false -- no GPU to render on; "
@@ -127,19 +132,25 @@ def run(argv=None, capture: dict | None = None) -> dict:
     width, height = map(int, args.size.split("x"))
     os.makedirs(args.out, exist_ok=True)
 
-    np_scene, table, cam, sun, masks = load(args)
-    ds = scene_mod.from_numpy(np_scene, device)
+    src = load(args)
+    table, cam, sun, masks = src.table, src.camera, src.sun, src.masks
+    ds = scene_mod.from_numpy(src.scene, device)
     tex = None if table is None else textures.to_device(table, device)
+    bvh = None
+    if args.shadows:
+        bvh = shadow.build_scene_rt(src.geometry, src.draws, src.materials, src.mips)[0].to(device)
+        print(f"shadow BVH: {bvh.nodes.shape[0]} nodes, {bvh.tri_v0.shape[0]} tris")
     if args.camera and os.path.exists(args.camera):
         cam = camera_mod.load_camera(args.camera)
         print(f"loaded camera from {args.camera}")
 
     cfg = frame.FrameConfig(width=width, height=height, post_passes=2 if masks is not None else 1,
+                            shadows=args.shadows, shadow_quality=1 if args.shadows and masks is not None else 0,
                             **VIEWER_CAPACITIES)
     settings = camera_mod.RenderSettings()
     if args.config is not None:
         ov = presets.frame_overrides(args.config)
-        ov.pop("shadows", None)  # the sun's shadows need a sun-map or BVH context (--shadows)
+        ov.pop("shadows", None)  # the sun's shadows need a BVH: --shadows
         cfg = dataclasses.replace(cfg, **ov)
         settings = presets.settings_for(args.config, settings)
         print(f"config preset {args.config}: {settings}")
@@ -154,7 +165,7 @@ def run(argv=None, capture: dict | None = None) -> dict:
         params, sp = frame.make_frame_inputs(cam, settings, cfg, sun_direction=sun)
         prof.begin_frame()
         last = n == args.frames - 1
-        image, fb, state, stats = frame.render_frame(ds, state, params, sp, cfg, textures=tex,
+        image, fb, state, stats = frame.render_frame(ds, state, params, sp, cfg, textures=tex, bvh=bvh,
                                                      capture=capture if last else None)
         if args.debug:
             # the reference's debug view: the next frame's core from the new state

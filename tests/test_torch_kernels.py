@@ -19,7 +19,10 @@ and the normal-mapped frame on the card against the CPU; the single-pass
 early pass of configs 0 and 1; the viewer on the card (PNGs, CUDA-event
 frame times, debug views and HUD equal to the CPU's).  The bloom kernels (csrc/bloom.cu) against
 their plain versions bit for bit on seeded nonzero inputs at odd sizes,
-and compute_bloom's kernel path against its plain path.  And the G-buffer
+and compute_bloom's kernel path against its plain path.  The BVH walk
+(csrc/trace.cu, both instances) against trace_plain on seeded rays: flags
+and per-ray step counts equal, a budget that cuts rays short too; and the
+ray-traced frame on the card against the CPU.  And the G-buffer
 and composite on the card against the CPU: the emissive channel's and the
 NDC planes' divisions bit for bit, the rest within 2e-6.  Animation
 playback on the card (its default device) against the CPU within 2e-6.
@@ -35,7 +38,7 @@ import pytest
 import torch
 
 from niagara_tpu_torch import _build, cooker, scene
-from niagara_tpu_torch.ops import bloom, cullmath, raster_tile, setup, shade
+from niagara_tpu_torch.ops import bloom, cullmath, raster_tile, setup, shade, shadow
 from niagara_tpu_torch.render import animation, camera, frame, hud, presets, textures
 from test_torch_raster_box import crafted_setup, screen_triangles
 
@@ -542,3 +545,74 @@ def test_viewer_on_the_card(captured, tmp_path, monkeypatch):
         assert torch.equal(card, cpu), mode
     img = r["image"]
     assert torch.equal(hud.draw_hud(img, ["frame 1.23 ms"]).cpu(), hud.draw_hud(img.cpu(), ["frame 1.23 ms"]))
+
+
+def _trace_inputs(tmp_path, case):
+    """A BVH on the card and seeded rays aimed at its draws: "opaque" 2,000
+    of the reference's PCG draws; "alpha" cooker.small_alpha_scene with its
+    mask rows; "budget" the opaque scene walked 24 steps a ray."""
+    g = cooker.cook_procedural(str(tmp_path))
+    if case == "alpha":
+        g, draws, mats, _, mips = cooker.small_alpha_scene(g)
+        bvh = shadow.build_scene_rt(g, draws, mats, mips)[0]
+        targets, dist = draws.position[draws.post_pass == 1], 8.0
+    else:
+        draws = cooker.synthesize_draws(g.meshes.count, draw_count=2000)
+        bvh, targets, dist = shadow.build_scene_rt(g, draws)[0], draws.position, 25.0
+    rng = np.random.default_rng(21)
+    tg = targets[rng.integers(0, len(targets), 20000)] + rng.normal(scale=0.6, size=(20000, 3))
+    o = tg + rng.normal(scale=dist, size=tg.shape)
+    d = (tg - o) / np.linalg.norm(tg - o, axis=1, keepdims=True)
+    return (bvh.to(DEV), torch.tensor(o, dtype=torch.float32, device=DEV),
+            torch.tensor(d, dtype=torch.float32, device=DEV))
+
+
+@pytest.mark.parametrize("case", ["opaque", "alpha", "budget"])
+def test_trace_kernel_matches_plain(tmp_path, case):
+    """trace_any_hit<false/true> (trace_cuda) against trace_plain on the
+    same card tensors: every flag and every ray's step count (-1 where the
+    budget ran out) equal; one launch counted; trace_any_hit takes the
+    kernel."""
+    _need_cuda()
+    bvh, o, d = _trace_inputs(tmp_path, case)
+    alpha, steps = case == "alpha", 24 if case == "budget" else 1024
+    name = "trace_alpha" if alpha else "trace"
+    before = _build.LAUNCHES[name]
+    occ, n = shadow.trace_cuda(bvh, o, d, max_steps=steps, alpha_test=alpha)
+    assert _build.LAUNCHES[name] == before + 1
+    assert torch.equal(shadow.trace_any_hit(bvh, o, d, max_steps=steps, alpha_test=alpha), occ)
+    p_occ, p_n = shadow.trace_plain(bvh, o, d, max_steps=steps, alpha_test=alpha)
+    assert torch.equal(occ, p_occ) and torch.equal(n, p_n)
+    assert 0 < int(occ.sum()) < len(occ)
+    if case == "budget":
+        assert int((n == -1).sum()) > 100
+    if alpha:
+        assert bool((shadow.trace_plain(bvh, o, d)[0] & ~occ).any()), "the masks let some rays through"
+
+
+def test_rt_frame_on_the_card_matches_cpu(tmp_path):
+    """Two ray-traced 256x128 frames of the small scene on the card against
+    the CPU: state, vis, depth and every traced flag exact; the shadow term
+    and image within 2e-6 (exp2 and pow differ between the math
+    libraries)."""
+    _need_cuda()
+    g = cooker.cook_procedural(str(tmp_path))
+    draws = cooker.small_scene_draws(g.meshes.count)
+    host_bvh = shadow.build_scene_rt(g, draws)[0]
+    np_scene = scene.upload(g, draws)
+    cfg = frame.FrameConfig(width=W, height=H, shadows=True, **presets.small_capacities())
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    runs = []
+    for device in (DEV, "cpu"):
+        tds = scene.from_numpy(np_scene, device)
+        state = frame.init_state(tds.num_draws, tds.meshlet_visibility_count, device)
+        cap = {}
+        for _ in range(2):
+            image, fb, state, _ = frame.render_frame(tds, state, params, sp, cfg, bvh=host_bvh.to(device), capture=cap)
+        runs.append((image.cpu(), fb.depth.cpu(), fb.vis.cpu(), state.draw_vis.cpu(), cap["shadow"].cpu(),
+                     cap["trace"]["occluded"].cpu()))
+    card, cpu = runs
+    for k in (1, 2, 3, 5):
+        assert torch.equal(card[k], cpu[k]), k
+    assert float((card[4] - cpu[4]).abs().max()) <= 2e-6 and float((card[0] - cpu[0]).abs().max()) <= 2e-6
+    assert bool((cpu[4] < 0.5).any()) and bool((cpu[4] > 0.99).any())

@@ -5,8 +5,8 @@ ops/shade.py:482-516): the HUD bit for bit, the PNG bytes, camera files
 read and written across the two packages, the profiler's EWMA and
 report, the debug views on the same frame, and the viewer itself on the
 CPU (`--device cpu`) at 256x128: its PNGs, the HUD, the camera file, the
-configs, the debug view, `--shadows` (raises, ROADMAP A16) and the error
-without a GPU."""
+configs, the debug view, `--shadows` with `--watch` (renders once) and
+the error without a GPU."""
 
 import os
 import struct
@@ -209,9 +209,21 @@ def test_viewer_debug_capture_holds_the_last_frame(tmp_path, small_viewer):
     assert torch.equal(vis, r["fb"].vis) and torch.equal(depth, r["fb"].depth)
 
 
-def test_viewer_shadows_raise_and_name_a16():
-    with pytest.raises(NotImplementedError, match="A16"):
-        render_scene.main(["--shadows", "--device", "cpu"])
+def test_viewer_shadows_raise_and_name_a16(tmp_path, small_viewer):
+    """`--shadows` raised until ray-traced shadows were ported (ROADMAP
+    A16, the name's); now it renders, and with --watch main renders once
+    and returns instead of entering the watch loop."""
+    out = tmp_path / "frames"
+    # the plain trace's small ops on one thread: under the parallel test
+    # run, torch's intra-op threads mostly wait on each other
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert render_scene.main(["--watch", "--shadows", "--device", "cpu", "--size", f"{W}x{H}", "--draws", "48",
+                                  "--frames", "1", "--out", str(out)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    assert os.listdir(out) == ["frame_000.png"]
 
 
 def test_viewer_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
