@@ -82,6 +82,34 @@ Phases, each reported on its own line:
                    the plain chain; times, bounds, the library yardsticks
                    (conv2d, conv_transpose2d, interpolate), and the launches
                    and device time of one bloom a frame under the profiler;
+  mesh small    -- the sharded frame (parallel/mesh.py): the small alpha
+                   scene with a 256x256 sun map of the unsharded scene, 4
+                   shards in this process, two frames on the card against
+                   the same 4 shards on the CPU: every shard's state, the
+                   summed stats, gdepth, gvis, the owner masks and the sun
+                   map exact, the image within 2e-6; then the small glass
+                   scene the same way ("mesh small glass"), its merged
+                   transmission layer exact too;
+  mesh scene/mesh main -- the alpha frame's 1M draws in 4 round-robin shards
+                   (materials only, as the reference's shard_draws), one
+                   headline budget for every shard, the checker textures
+                   and the static 2048^2 sun map of the unsharded scene,
+                   bloom on, 1920x1080: two cold and three steady frames
+                   with the counters at zero, loss-free, each kernel
+                   launched 4 times a pass; the same as 1 shard; the
+                   merged gdepth equal to render_frame's depth, the valid
+                   masks equal, the image equal but where another draw wins
+                   a depth tie (counted); frame ms, the merge's ms, peak
+                   memory, the bytes reduced a frame;
+  mesh kernels  -- the kernels replayed on shard 1 of the steady frame
+                   (a nonzero fragment offset) against their plain versions;
+  mesh profile  -- torch.profiler over five 4-shard frames;
+  mesh dist     -- two processes (spawned, gloo, both on cuda:0) each
+                   holding one shard of the opaque 1M-draw frame, three
+                   frames through the Distributed collective, against the
+                   same 2 shards in this process: image, gdepth, gvis,
+                   stats and each rank's state bit for bit; the route the
+                   reductions took (gloo's all_reduce on the card's tensors);
   glass small   -- the small scene as cooker.small_glass_scene makes it
                    (material 6's draws in the transmission class, materials
                    0-3 normal-mapped), post_passes=3, two 256x128 frames,
@@ -157,7 +185,9 @@ Phases, each reported on its own line:
 Every path renders with bloom on, as bench.py does.  The line before the
 last is the per-kernel JSON record (times, launches and bounds of the
 steady frames; a row also holds the kernel's numbers on other paths
-under "alpha_path", "glass_path", "configs_path" and "city_path"); the
+under "alpha_path", "glass_path", "configs_path", "city_path" and
+"mesh_path", the last per frame of one shard with the launches of all
+four); the
 last line is
 {"ok": true, "device": ...}.  Any failed check raises (nonzero exit).
 """
@@ -225,8 +255,10 @@ BLOOM_LAUNCHES = {"bloom_down": 21, "bloom_up": 21, "bloom_x2": 3}
 TRACE_OPS = {"nodes": 25, "tris": 52, "instances": 69, "masks": 24}
 TRACE_ROW_BYTES = {"nodes": 32, "tris": 48, "instances": 48, "masks": 64}
 TRACE_RAY_BYTES = 24 + 1 + 4
-# the render size of the glass and configs paths
+# the render size of the glass, configs and mesh paths
 FULL = (1920, 1080)
+# the sharded frame's shards in one process
+MESH_SHARDS = 4
 # the configs path: torus draws and the camera's distance in front of the
 # first draw.  Config 0 expands each draw's 1,089 LOD-0 meshlets (the
 # torus's) against the viewer's candidate budget of 65,536 clusters: up to
@@ -537,6 +569,13 @@ def run_all(base, city_job, dev, smi) -> dict:
     del ds, tex, sun
     torch.cuda.empty_cache()
 
+    # the sharded frame: the alpha scene's draws in 4 shards on this card,
+    # then 2 gloo ranks sharing it
+    run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi)
+    torch.cuda.empty_cache()
+    run_mesh_dist(geometry, draws.count, dev, smi)
+    torch.cuda.empty_cache()
+
     # the glass frame: the alpha frame with a transmission class and
     # normal maps (post_passes=3)
     run_glass(kernels, geometry, draws, dev, smi, base)
@@ -588,6 +627,359 @@ def run_all(base, city_job, dev, smi) -> dict:
     profile_frames("city profile", lambda st, i: frame.render_frame(ds, st, path["params"], path["sp"], cfg,
                                                                    textures=tex)[2], path["state"])
     return kernels
+
+
+def mesh_small(tag, dev, g, d, mats, mips, cfg, n: int = 4) -> None:
+    """A small scene as n in-process shards (materials only, the textures
+    and, with cfg.shadows, a 256^2 sun map of the unsharded scene given to
+    the frame), two frames on the card against the same shards on the CPU:
+    every shard's state, the summed stats, gdepth, gvis, the owner masks,
+    the sun map and, with post_passes=3, the merged layer exact; the image
+    within 2e-6."""
+    import torch
+
+    from niagara_tpu_torch.ops import sunmap
+    from niagara_tpu_torch.parallel import mesh
+    from niagara_tpu_torch.render import camera, frame, textures
+
+    table = textures.build_texture_table(mips)
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    runs = {}
+    for where in ("cpu", dev):
+        scenes = mesh.shard_draws(g, d, n, mats, device=where)
+        tex = textures.to_device(table, where)
+        sun = None
+        if cfg.shadows:
+            sf = sunmap.fit_sun_to_draws(sp.sun_direction, d, device=where)
+            static, drop = sunmap.build_static_sun_map(mesh.shard_draws(g, d, 1, mats, device=where)[0], sf, batch=16,
+                                                       num_draws=d.count, map_w=256, map_h=256, cmd_capacity=256,
+                                                       cluster_capacity=1024, tri_capacity=1 << 14,
+                                                       pair_capacity=1 << 15)
+            check(int(drop) == 0, "the small sun map dropped work")
+            sun = (sf, sunmap.pack_sun_map(static), (256, 256))
+        states = mesh.init_sharded_state(scenes)
+        for _ in range(2):
+            cap = {}
+            img, fb, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, mesh.InProcess(),
+                                                               textures=tex, sun=sun, capture=cap)
+        runs[str(where)] = dict(img=img.cpu(), depth=fb.depth.cpu(), vis=fb.vis.cpu(), stats=stats.to_dict(),
+                                mine=[m.cpu() for m in cap["mine"]], states=[frame.state_to_numpy(x) for x in states],
+                                map=None if sun is None else sun[1].cpu(),
+                                layer=cap["layer"] and {k: v.cpu() for k, v in cap["layer"].items()})
+    c, k = runs["cpu"], runs[str(dev)]
+    check(all(np.array_equal(c["stats"][f], k["stats"][f]) for f in c["stats"]), f"{tag}: summed stats differ")
+    check(all(np.array_equal(x, y) for a, b in zip(c["states"], k["states"]) for x, y in zip(a, b)),
+          f"{tag}: a shard's state differs")
+    check(torch.equal(c["depth"], k["depth"]) and torch.equal(c["vis"], k["vis"]), f"{tag}: gdepth/gvis differ")
+    check(all(torch.equal(a, b) for a, b in zip(c["mine"], k["mine"])), f"{tag}: owner masks differ")
+    check(c["map"] is None or torch.equal(c["map"], k["map"]), f"{tag}: sun maps differ")
+    extra = ""
+    if c["layer"]:
+        check(all(torch.equal(c["layer"][f], k["layer"][f]) for f in c["layer"]), f"{tag}: the merged layer differs")
+        extra = f", merged transmission layer equal ({int((c['layer']['vis'] != INVALID).sum())} px)"
+    check(all(int(c["stats"][f]) == 0 for f in DROPS), f"{tag}: dropped work")
+    image_err = float((c["img"] - k["img"]).abs().max())
+    owned = [int(m.sum()) for m in c["mine"]]
+    log(tag, f"{n} shards of {d.count} draws, 256x128, two frames, kernels on {dev} vs plain on cpu: states, stats, "
+        f"gdepth, gvis, owner masks{' and sun map' if c['map'] is not None else ''} equal; pixels owned per shard "
+        f"{owned}; image max_abs_err {image_err:.3g} (tolerance 2e-6){extra}")
+    check(image_err <= 2e-6 and min(owned) > 0, f"{tag}: image differs or a shard owns no pixel")
+
+
+def mesh_frames(tag, scenes, states, cfg, params, sp, tex, sun, expected, smi) -> dict:
+    """Two cold and three steady sharded frames (InProcess), the counters
+    at zero and the peak memory reset before the steady ones: each
+    loss-free (the summed drop counters are 0, so every shard's are) and
+    finite, the launches as `expected`.  Returns the last frame (image,
+    framebuffer, capture, stats), the states before and after it, the
+    frame times and the memory."""
+    import torch
+
+    from niagara_tpu_torch import _build
+    from niagara_tpu_torch.parallel import mesh
+
+    coll = mesh.InProcess()
+    for i in range(2):
+        _, _, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, coll, textures=tex, sun=sun)
+        log(f"{tag} warmup", f"frame {i}: {frame_line(stats.to_dict())}")
+    torch.cuda.synchronize()
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    frame_ms = []
+    for i in range(3):
+        cap = {} if i == 2 else None
+        before = states
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        image, fb, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, coll, textures=tex,
+                                                             sun=sun, capture=cap)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        s = stats.to_dict()
+        log(f"{tag} main", f"frame {i + 2}: {frame_ms[-1]:.3f} ms | {frame_line(s)} covered_px "
+            f"{int((fb.vis != INVALID).sum())}")
+        check(all(int(s[k]) == 0 for k in DROPS) and not s["pair_drop_vec"].any(), f"{tag} frame {i + 2} dropped work")
+        check(tuple(image.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(image).all()),
+              f"{tag}: image not finite")
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} main", f"launches {launches} (expected {expected}); frame ms {frame_ms}; memory allocated "
+        f"{resident / 2**30:.2f} GiB before the steady frames, peak {peak / 2**30:.2f} GiB on {smi}")
+    check(launches == expected, f"{tag}: kernel launch counts")
+    return dict(image=image, fb=fb, cap=cap, stats=s, before=before, states=states, launches=launches,
+                frame_ms=frame_ms, peak=peak, resident=resident)
+
+
+def run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi) -> None:
+    """The sharded frame (parallel/mesh.py).  mesh small: the small alpha
+    and glass scenes in 4 shards, card against CPU.  mesh main: the alpha
+    frame's 1M draws (ga, da, mats, mips: cooker.alpha_scene) in 4 shards
+    on this card, one headline budget each, textured, with the static
+    2048^2 sun map of the unsharded scene, bloom on, 1920x1080, against
+    the same draws as 1 shard and render_frame; the kernels replayed on
+    shard 1; the profile.  The path's launches and shard 1's kernel
+    numbers ride in each kernel's row under "mesh_path"."""
+    import torch
+
+    from niagara_tpu_torch import cooker
+    from niagara_tpu_torch.ops import raster_tile, setup, shade, shadow, sunmap
+    from niagara_tpu_torch.parallel import mesh
+    from niagara_tpu_torch.render import camera, frame, presets, textures
+
+    small = presets.small_capacities()
+    g, d, m, _, mp = cooker.small_alpha_scene(geometry)
+    mesh_small("mesh small", dev, g, d, m, mp,
+               frame.FrameConfig(width=256, height=128, post_passes=2, shadows=True, **small))
+    g, d, m, _, mp = cooker.small_glass_scene(geometry)
+    mesh_small("mesh small glass", dev, g, d, m, mp, frame.FrameConfig(width=256, height=128, post_passes=3, **small))
+
+    n = MESH_SHARDS
+    t0 = time.perf_counter()
+    shards = {k: mesh.shard_draws(ga, da, k, mats, device=dev) for k in (n, 1)}
+    tex = textures.to_device(textures.build_texture_table(mips), dev)
+    cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=2, shadows=True,
+                            **presets.headline_capacities(da.count))
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sf = sunmap.fit_sun_to_draws(sp.sun_direction, da, device=dev)
+    static, drop = sunmap.build_static_sun_map(shards[1][0], sf, batch=SUN_BATCH, num_draws=da.count, map_w=SUN_MAP,
+                                               map_h=SUN_MAP, texel_world=sunmap.map_texel_world(sf, SUN_MAP, SUN_MAP),
+                                               cmd_capacity=cfg.cmd_capacity, cluster_capacity=cfg.cluster_capacity,
+                                               tri_capacity=min(cfg.tri_capacity, 1 << 19),
+                                               pair_capacity=cfg.pair_capacity)
+    sun = (sf, sunmap.pack_sun_map(static), (SUN_MAP, SUN_MAP))
+    torch.cuda.synchronize()
+    check(int(drop) == 0, "the mesh path's sun map dropped work")
+    log("mesh scene", f"{da.count} draws in {n} shards of {shards[n][0].num_draws} (and 1 of {da.count}), "
+        f"{int((da.post_pass > 0).sum())} in the alpha class, no masks (materials only); frag_stride "
+        f"{mesh.frag_stride(cfg)}; shards uploaded in {upload_s:.1f} s; static {SUN_MAP}^2 sun map of the "
+        f"unsharded scene {time.perf_counter() - t0:.2f} s, covered texels {int((static > 0).sum())}")
+    del static
+
+    per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1)
+    runs = {}
+    for k in (n, 1):
+        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **BLOOM_LAUNCHES)
+        runs[k] = mesh_frames(f"mesh {k}-shard", shards[k], mesh.init_sharded_state(shards[k]), cfg, params, sp, tex,
+                              sun, expected, smi)
+    four, one = runs[n], runs[1]
+    _, rfb, rstate, _ = frame.render_frame(shards[1][0], one["before"][0], params, sp, cfg, textures=tex, sun=sun)
+    check(torch.equal(rfb.depth, one["fb"].depth) and torch.equal(rfb.vis, one["fb"].vis),
+          "the 1-shard frame differs from render_frame")
+    # each shard's depth pyramid holds only its own occluders, so it culls
+    # no more than the single card's: gdepth is never farther, and where it
+    # is nearer the single card's occlusion test culled a draw that is
+    # visible there (its pyramid is not conservative at a one-pixel gap)
+    draws4 = mesh.winning_draws(four["cap"], four["fb"].vis, n, cfg)
+    draws1 = mesh.winning_draws(one["cap"], one["fb"].vis, 1, cfg)
+    nearer = four["fb"].depth > rfb.depth
+    check(not bool((four["fb"].depth < rfb.depth).any()), "the merged gdepth is farther than render_frame's somewhere")
+    culled = torch.unique(draws4[nearer])
+    won1 = torch.zeros(da.count, dtype=torch.bool, device=dev)
+    won1[draws1[draws1 >= 0]] = True
+    check(not bool(won1[culled].any()) and not bool(rstate.draw_vis[culled].any()),
+          "a draw that renders nearer in the shards is visible in the single-card frame")
+    check(torch.equal(four["cap"]["valid"][~nearer], one["cap"]["valid"][~nearer]), "the merged valid masks differ")
+    # the depth-aware shadow blur carries a changed depth (half resolution,
+    # SHADOW_BLUR_KERNEL taps and the gradient's neighbour) into the term
+    reach = 2 * (shadow.SHADOW_BLUR_KERNEL + 1) + 1
+    near_reach = torch.nn.functional.max_pool2d(nearer[None, None].float(), 2 * reach + 1, 1, reach)[0, 0] > 0
+    ties = (draws4 != draws1) & ~nearer
+    differ = (four["image"] != one["image"]).any(-1)
+    check(torch.equal(draws4 >= 0, rfb.vis != INVALID), "winning draws do not cover the covered pixels")
+    check(not bool((differ & ~ties & ~near_reach).any()), "the 4-shard image differs where the same draw wins")
+    owned = [int(x.sum()) for x in four["cap"]["mine"]]
+    log("mesh main", f"frame 4: gdepth equals render_frame's depth at {int((~nearer).sum())} of {nearer.numel()} px "
+        f"and is nearer at {int(nearer.sum())} px (max {float((four['fb'].depth - rfb.depth).max()):.4g}), each won by "
+        f"a draw the single card culled as occluded ({culled.numel()} draws: invisible in its state, winning no px); "
+        f"valid masks equal elsewhere; pixels owned per shard {owned}; {int(ties.sum())} px won by another draw of "
+        f"equal depth ({int((differ & ties).sum())} of them another colour); {int((differ & near_reach & ~ties).sum())} "
+        f"px of another colour within the shadow blur's reach ({reach} px) of the nearer ones; the image equal "
+        f"elsewhere")
+
+    # the merge alone on the steady frame's shards: reductions, the owner
+    # G-buffers with pack, the sum of the packed planes with unpack
+    cap, coll, ivp = four["cap"], mesh.InProcess(), sp.inverse_view_projection
+    depths, viss = [fb.depth for fb in cap["fbs"]], [fb.vis for fb in cap["fbs"]]
+    gdepth, gvis, mine = mesh.sort_last(depths, viss, coll)
+    check(torch.equal(gdepth, four["fb"].depth) and torch.equal(gvis, four["fb"].vis), "the merge is not reproducible")
+
+    def owner_planes():
+        return [shade.pack_gbuffer(*shade.gbuffer_from_attrs(a, o, sc, textures=tex, depth=gdepth,
+                                                             inverse_view_projection=ivp))
+                for a, o, sc in zip(cap["attrs"], mine, shards[n])]
+
+    packed = owner_planes()
+
+    def sum_unpack():
+        return shade.unpack_gbuffer(coll.sum([p[0] for p in packed]), coll.sum([p[1] for p in packed]))
+
+    def whole():
+        dz, _, mz = mesh.sort_last(depths, viss, coll)
+        return mesh.merge_gbuffer(cap["attrs"], mz, shards[n], coll, dz, ivp, tex)
+
+    merged = whole()
+    check(all(torch.equal(x, cap[k]) for x, k in zip(merged, ("g0", "g1", "valid"))), "the merged G-buffer differs")
+    t = dict(sort_last=cuda_ms(lambda: mesh.sort_last(depths, viss, coll), 10), owner=cuda_ms(owner_planes, 5),
+             sum_unpack=cuda_ms(sum_unpack, 10))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        whole()
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = mesh.allreduce_bytes_per_frame(cfg)
+    log("mesh main", f"merge of {n} shards: {start.elapsed_time(end) / 5:.3f} ms a frame (CUDA events, host enqueue "
+        f"included); device ms: depth max + id min {t['sort_last']:.4f}, owner G-buffers + pack {t['owner']:.4f}, sum "
+        f"+ unpack {t['sum_unpack']:.4f}; allreduce_bytes_per_frame {nbytes} ({nbytes / 2**20:.1f} MiB a shard); "
+        f"frame ms {n} shards {four['frame_ms']}, 1 shard {one['frame_ms']}; peak memory (max_memory_allocated) "
+        f"{n} shards {four['peak'] / 2**30:.2f} GiB, {(four['peak'] - four['resident']) / 2**30:.2f} GiB above the "
+        f"{four['resident'] / 2**30:.2f} resident before its steady frames; 1 shard {one['peak'] / 2**30:.2f} GiB, "
+        f"{(one['peak'] - one['resident']) / 2**30:.2f} above {one['resident'] / 2**30:.2f} (the 4 shards' scenes "
+        f"and states still resident) on {smi}")
+
+    s1 = cap["shards"][1]
+    off = mesh.frag_stride(cfg) * cap["shard_ids"][1]
+    rows = compare_kernels("mesh ", f"steady frame 4 shard 1 (fragment offset {off})", s1, shards[n][1], params, cfg,
+                           setup, raster_tile)
+    for r in rows:
+        kernels[r["name"]]["mesh_path"] = side_row(r, four["launches"][r["name"]])
+    profile_frames("mesh profile", lambda st, i: mesh.render_sharded_frame(shards[n], st, params, sp, cfg, coll,
+                                                                          textures=tex, sun=sun)[2], four["states"],
+                   smi=smi)
+
+
+def mesh_dist_rank(rank: int, world: int, port: int, out_dir: str, frames: int, device: str, size: tuple,
+                   draw_count: int) -> None:
+    """One rank of the mesh dist phase (spawned): joins the gloo group at
+    tcp://localhost:`port`, takes shard `rank` of the opaque frame of
+    `draw_count` synthesized draws at `size` on `device`, renders `frames`
+    sharded frames through the Distributed collective (gloo's all_reduce
+    on the tensors where they live) and writes the last one's image,
+    gdepth, gvis, stats, its state, the route and the frame times to
+    `out_dir`/rank<rank>.npz."""
+    import torch
+    import torch.distributed as dist
+
+    from niagara_tpu_torch import cooker
+    from niagara_tpu_torch.parallel import mesh
+    from niagara_tpu_torch.render import camera, frame, presets
+
+    dev = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    try:
+        route = f"{dist.get_backend()} all_reduce (max, min, sum) on {dev.type} tensors"
+        coll = mesh.Distributed()
+        geometry = cooker.cook_procedural()
+        draws = cooker.synthesize_draws(geometry.meshes.count, draw_count=draw_count)
+        scenes = [mesh.shard_draws(geometry, draws, world, device=dev)[rank]]
+        states = mesh.init_sharded_state(scenes)
+        cfg = frame.FrameConfig(width=size[0], height=size[1], **presets.headline_capacities(draws.count))
+        params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+        frame_ms = []
+        for _ in range(frames):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            image, fb, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, coll)
+            end.record()
+            torch.cuda.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+        draw_vis, vis_words = frame.state_to_numpy(states[0])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), image=image.cpu().numpy(), depth=fb.depth.cpu().numpy(),
+                 vis=fb.vis.cpu().numpy(), draw_vis=draw_vis, vis_words=vis_words, route=route,
+                 frame_ms=np.array(frame_ms), **{f"stats_{k}": v for k, v in stats.to_dict().items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_dist(geometry, draw_count: int, dev, smi) -> None:
+    """mesh dist: two spawned ranks (gloo, both on cuda:0), one shard each
+    of the opaque frame of `draw_count` synthesized draws (made afresh, as
+    each rank makes them: the alpha paths rewrite the classes of
+    run_all's draws in place), three frames, against the same 2 shards in
+    this process (run meanwhile): image, gdepth, gvis, stats and each
+    rank's state bit for bit.  A rank that fails or outlives its time
+    fails the phase; every rank is stopped before this returns."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    from niagara_tpu_torch import cooker
+    from niagara_tpu_torch.parallel import mesh
+    from niagara_tpu_torch.render import camera, frame, presets
+
+    world, frames = 2, 3
+    draws = cooker.synthesize_draws(geometry.meshes.count, draw_count=draw_count)
+    out = os.path.join(ROOT, ".cache", "mesh_dist")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(mesh_dist_rank, args=(world, port, out, frames, str(dev), FULL, draws.count),
+                              nprocs=world, join=False, start_method="spawn")
+    try:
+        scenes = mesh.shard_draws(geometry, draws, world, device=dev)
+        states = mesh.init_sharded_state(scenes)
+        cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], **presets.headline_capacities(draws.count))
+        params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+        for _ in range(frames):
+            image, fb, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, mesh.InProcess())
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, "mesh dist: the ranks did not finish in 600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    secs = time.perf_counter() - t0
+    s = stats.to_dict()
+    routes = []
+    for rank in range(world):
+        z = np.load(os.path.join(out, f"rank{rank}.npz"))
+        routes.append(str(z["route"]))
+        dv, vw = frame.state_to_numpy(states[rank])
+        check(np.array_equal(z["image"], image.cpu().numpy()), f"mesh dist: rank {rank}'s image differs")
+        check(np.array_equal(z["depth"], fb.depth.cpu().numpy()) and np.array_equal(z["vis"], fb.vis.cpu().numpy()),
+              f"mesh dist: rank {rank}'s gdepth/gvis differ")
+        check(np.array_equal(z["draw_vis"], dv) and np.array_equal(z["vis_words"], vw),
+              f"mesh dist: rank {rank}'s state differs")
+        check(all(np.array_equal(z[f"stats_{k}"], v) for k, v in s.items()), f"mesh dist: rank {rank}'s stats differ")
+        log("mesh dist", f"rank {rank}: route {routes[-1]}; frame ms {z['frame_ms'].round(3).tolist()}")
+    check(all(int(s[k]) == 0 for k in DROPS), "mesh dist: the steady frame dropped work")
+    log("mesh dist", f"{world} gloo ranks on {dev}, one shard of {draws.count // world} draws each, {frames} frames, "
+        f"{secs:.1f} s with the ranks' start-up: image, gdepth, gvis, stats and every rank's state equal the "
+        f"in-process run bit for bit | {frame_line(s)} on {smi}")
 
 
 def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
@@ -1015,7 +1407,9 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
         shifted = raster_tile.raster_cuda(ts, pt, rec, off + cfg.tri_capacity + cfg.late_tri_cap, d0, v0, tiles_x,
                                           alpha_test=alpha)
         cases = [("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))]
-        if alpha:
+        # a scene uploaded without masks (the mesh path's shards) has no
+        # masked record to give random bits
+        if alpha and bool((rec[:, 54] > 0).any()):
             gen = torch.Generator(device=rec.device).manual_seed(0)
             bits = torch.randint(0, 1 << 16, (rec.shape[0], 4), generator=gen, device=rec.device).float()
             noisy = rec.clone()
@@ -1040,7 +1434,7 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
                 check(case == "" or changed > 0, "random masks discard nothing")
         check(torch.equal(results[0], results[1]), f"{label} {name} {pass_}: the tie merge must give the pass's result")
         log(f"{tag}kernels", f"{label} {name} {pass_}: {int(ts[-1])} pairs, vis equal (tie merge"
-            f"{', random masks' if alpha else ''} too), depth max_abs_err {err} (tolerance 0){discard}")
+            f"{', random masks' if len(cases) > 2 else ''} too), depth max_abs_err {err} (tolerance 0){discard}")
         check(err == 0.0, f"{name} depth differs")
         old = (lambda: braster.raster_cuda(*args, alpha_test=alpha)) if base else None
         add(name, err, in_turns(lambda: raster_tile.raster_cuda(*args, alpha_test=alpha), old, 10),
@@ -1539,21 +1933,30 @@ def compare_bloom(tag, g0, width: int, height: int, bloom, _build) -> list[dict]
         f"bloom mean {float(full.mean()):.4g}")
 
     # one bloom (chain + expansion) under the profiler: its launches, device
-    # time, and that only bloom.cu's kernels and the extract's ops run
+    # time, and that only bloom.cu's kernels and the extract's ops run.  The
+    # profiler on the card has lost a share of a window's device events (in
+    # one run 37% of them, torch's kernels and bloom.cu's alike, where a
+    # fresh process on the same image reported all of them): a window short
+    # of the expected launches is taken again, at most three times
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            bloom.sample_bloom_fullres(bloom.compute_bloom(g0, width, height), width, height)
+    expected = 5 * (2 * levels - 1)
+    for attempt in range(3):
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in device if "bloom_" in e.name]
-    log(tag, f"one bloom a frame (profiler, 5 calls): {len(device) / 5:.0f} device ops of which {len(ours) / 5:.0f} "
-        f"bloom.cu launches, {sum(e.time_range.elapsed_us() for e in device) / 5e3:.4f} ms device time "
-        f"({sum(e.time_range.elapsed_us() for e in ours) / 5e3:.4f} ms in bloom.cu); the rest is the plain extract")
-    check(len(ours) == 5 * (2 * levels - 1), "the bloom chain did not run on bloom.cu's kernels")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                bloom.sample_bloom_fullres(bloom.compute_bloom(g0, width, height), width, height)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in device if "bloom_" in e.name]
+        log(tag, f"one bloom a frame (profiler, 5 calls, window {attempt + 1}): {len(device) / 5:.0f} device ops of "
+            f"which {len(ours) / 5:.0f} bloom.cu launches, {sum(e.time_range.elapsed_us() for e in device) / 5e3:.4f} "
+            f"ms device time ({sum(e.time_range.elapsed_us() for e in ours) / 5e3:.4f} ms in bloom.cu); the rest is "
+            f"the plain extract")
+        if len(ours) == expected:
+            break
+    check(len(ours) == expected, "the bloom chain did not run on bloom.cu's kernels")
 
     out = []
     for name, r in rows.items():
@@ -1568,7 +1971,7 @@ def compare_bloom(tag, g0, width: int, height: int, bloom, _build) -> list[dict]
     return out
 
 
-def profile_frames(tag, step, state, n: int = 5) -> None:
+def profile_frames(tag, step, state, n: int = 5, smi: str = "") -> None:
     """torch.profiler over n chained frames, `step(state, i)` rendering
     frame i and returning the next state: device ops and kernel launches
     per frame, device busy time (union of device op intervals) and idle
@@ -1600,7 +2003,7 @@ def profile_frames(tag, step, state, n: int = 5) -> None:
     log(tag, f"{n} frames, profiler on: host wall {wall_us / 1e3 / n:.3f} ms/frame, "
         f"{len(device) / n:.0f} device ops/frame, {len(launch) / n:.0f} kernel launches/frame "
         f"({sum(e.time_range.elapsed_us() for e in launch) / 1e3 / n:.3f} ms host), device busy "
-        f"{busy / 1e3 / n:.3f} ms/frame, device idle share {1 - busy / wall_us:.3f}")
+        f"{busy / 1e3 / n:.3f} ms/frame, device idle share {1 - busy / wall_us:.3f}{' on ' + smi if smi else ''}")
     blooms = {k: v for k, v in by_name.items() if "bloom_" in k}
     n_bloom = sum(1 for e in device if "bloom_" in e.name)
     log(tag, f"bloom.cu: {n_bloom / n:.0f} launches/frame, {sum(blooms.values()) / 1e3 / n:.4f} ms/frame device")

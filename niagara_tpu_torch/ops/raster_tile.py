@@ -251,8 +251,11 @@ def raster_plain(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, al
     # positive depth order like the depth, so amax resolves both at once
     best = torch.zeros(H * W, dtype=torch.int64, device=dev)
     n_live = tile_start[-1]
-    for c0 in range(0, pair_tri.shape[0], chunk):
-        p = torch.arange(c0, min(c0 + chunk, pair_tri.shape[0]), device=dev)
+    # the card evaluates the whole capacity, reading no count back; on the
+    # CPU the read is free and the chunks past the live pairs cover nothing
+    n_eval = pair_tri.shape[0] if dev.type == "cuda" else min(int(n_live), pair_tri.shape[0])
+    for c0 in range(0, n_eval, chunk):
+        p = torch.arange(c0, min(c0 + chunk, n_eval), device=dev)
         live = p < n_live
         t = torch.clamp_max(torch.searchsorted(tile_start[1:], p, right=True), n_tiles - 1)
         r = rec[pair_tri[p]] if alpha_test else rec[pair_tri[p]][:, :16]

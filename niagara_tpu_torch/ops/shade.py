@@ -6,7 +6,8 @@ slots), normal maps through the screen-space tangent frame
 (:319); `_lit_color` (:378) and `composite` (:420) with the sun-map
 shadow term (:415-416, 444), the bloom term (:451-452) and the
 transmission layer's depth-tested blend (:460-475); `debug_visualize`
-and `_hash_color` (:482-516).
+and `_hash_color` (:482-516); `pack_gbuffer` / `unpack_gbuffer` (:340-375),
+the sharded frame's G-buffer encoding (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -130,6 +131,34 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None, *, depth=None, in
                     torch.zeros_like(specgloss[..., :1])], dim=-1)
     v4 = valid[..., None]
     return torch.where(v4, g0, 0.0), torch.where(v4, g1, 0.0), valid
+
+
+def pack_gbuffer(g0, g1, valid):
+    """The G-buffer planes quantized to the reference's storage encodings
+    and packed into two i32 planes (shade.py:340): g0 as rgba8, g1's
+    first three channels as 10/10/10 with `valid` in bit 30.  torch has no
+    full u32 arithmetic, so the words are built in int64 and wrapped to
+    i32 (two's complement: bits 24-31 of p0 make it negative).  Invalid
+    pixels pack to exactly 0, so a sum of disjoint owner planes is their
+    union bit for bit.  Returns (p0, p1) i32 [H, W]."""
+    q0 = torch.round(torch.clamp(g0, 0.0, 1.0) * 255.0).to(torch.int64)
+    p0 = q0[..., 0] | (q0[..., 1] << 8) | (q0[..., 2] << 16) | (q0[..., 3] << 24)
+    q1 = torch.round(torch.clamp(g1[..., :3], 0.0, 1.0) * 1023.0).to(torch.int64)
+    p1 = q1[..., 0] | (q1[..., 1] << 10) | (q1[..., 2] << 20) | (valid.to(torch.int64) << 30)
+    p0, p1 = torch.where(valid, p0, 0), torch.where(valid, p1, 0)
+    return torch.where(p0 >= 1 << 31, p0 - (1 << 32), p0).to(torch.int32), p1.to(torch.int32)
+
+
+def unpack_gbuffer(p0, p1):
+    """pack_gbuffer's inverse (shade.py:364): (g0 [H,W,4], g1 [H,W,4] with
+    a zero 4th channel, valid [H,W] bool).  Each channel is multiplied by
+    the f32 constant 1/255 or 1/1023, as the reference does (:370, :373),
+    not divided."""
+    p0 = p0.to(torch.int64) & 0xFFFFFFFF
+    p1 = p1.to(torch.int64)
+    g0 = torch.stack([((p0 >> s) & 255).to(torch.float32) * (1.0 / 255.0) for s in (0, 8, 16, 24)], dim=-1)
+    c1 = [((p1 >> s) & 1023).to(torch.float32) * (1.0 / 1023.0) for s in (0, 10, 20)]
+    return g0, torch.stack(c1 + [torch.zeros_like(c1[0])], dim=-1), ((p1 >> 30) & 1) > 0
 
 
 def ndc_planes(width: int, height: int, device):

@@ -25,7 +25,8 @@ class 0 only, with no pyramid and no late pass (frame.py:281-290, 561-581).
 With `FrameConfig.shadows` and a ShadowBVH (`bvh`, ops/shadow.py) the
 sun's shadow term is ray-traced instead (frame.py:672-685).  Fragment ids:
 early records are [0, tri_capacity), the late group g's tri_capacity +
-g * late_tri_capacity + [0, late_tri_capacity) (frame.py:389).
+g * late_tri_capacity + [0, late_tri_capacity) (frame.py:389), all
+shifted by frame_core's `frag_offset`.
 """
 
 from __future__ import annotations
@@ -197,10 +198,20 @@ def _cluster_pass(scene, params, emit, lod, dvb, words, atlas, cfg, *, late, pyr
     return out, new_words, n_draws, ddrop, cdrop, n_cand
 
 
-def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict | None = None):
+def frag_span(cfg: FrameConfig) -> int:
+    """Fragment ids one frame_core call uses: the early pass's
+    [0, tri_capacity), then one late_tri_capacity block per late group."""
+    return cfg.tri_capacity + len(cfg.late_class_groups) * cfg.late_tri_cap
+
+
+def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict | None = None,
+               frag_offset: int = 0):
     """Cull + raster + attribute resolve for one frame.  Returns (fb,
     new_state, stats, attrs [H,W,13], layer): `layer` is the transmission
     class's own dict(depth, vis, attrs) with post_passes=3, else None.
+    `frag_offset` shifts every fragment id of the frame (frame.py:258, 330,
+    389), which gives each shard of a sharded frame (parallel/mesh.py) a
+    range of its own; ids stay below INVALID_FRAG.
 
     A `capture` dict receives the inputs of every kernel call (chip_smoke.py
     replays them against the plain versions), in pass order ("passes":
@@ -210,6 +221,9 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     "raster_alpha_test", "shade" (streams, vis) and, with the layer,
     "shade_layer"."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
+    if not 0 <= frag_offset <= INVALID_FRAG - frag_span(cfg):
+        raise ValueError(f"frag_offset {frag_offset}: the frame's ids [offset, offset + {frag_span(cfg)}) must stay "
+                         f"below INVALID_FRAG ({INVALID_FRAG:#x})")
     dev = state.draw_vis.device
     levels, ph, pw = cfg.pyramid_levels_shape
     pyr_hw = (ph, pw)
@@ -242,7 +256,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
     ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
         scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
-    depth, vis = render_pass("early", tc_e, cfg.tri_capacity, 0, *clear(), cfg.pair_capacity)
+    depth, vis = render_pass("early", tc_e, cfg.tri_capacity, frag_offset, *clear(), cfg.pair_capacity)
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     layer_depth = layer_vis = None
@@ -259,7 +273,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
             scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
         for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
-            off = cfg.tri_capacity + g * cfg.late_tri_cap
+            off = frag_offset + cfg.tri_capacity + g * cfg.late_tri_cap
             if group == (2,):
                 layer_depth, layer_vis = render_pass("glass", tc, cfg.late_tri_cap, off, *clear(), cfg.late_pair_cap)
             else:
@@ -365,6 +379,24 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
         transmission = (g0t, g1t, layer["depth"], valid_t)
     g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures, depth=fb.depth,
                                              inverse_view_projection=ivp)
+    if capture is not None:
+        capture.update(g0=g0, valid=valid,
+                       layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))
+    image = composite_frame(g0, g1, fb.depth, valid, params, shade_params, cfg, transmission=transmission, sun=sun,
+                            bvh=bvh, capture=capture)
+    return image, fb, new_state, stats
+
+
+def composite_frame(g0, g1, depth, valid, params, shade_params: ShadeParams, cfg: FrameConfig, *, transmission=None,
+                    sun=None, bvh=None, capture: dict | None = None):
+    """The image of a frame's G-buffer (frame.py:643-700): with `cfg.bloom`
+    the bloom of g0, with `cfg.shadows` the sun's shadow term from `depth`
+    through the packed sun map `sun` or the ShadowBVH `bvh` (render_frame
+    says which), then the composite, blending `transmission` = (g0t, g1t,
+    depth_t, valid_t) when given.  `capture` receives the shadow term
+    ("shadow", None when unshadowed) and the ray-traced pass's rays
+    ("trace")."""
+    ivp = shade_params.inverse_view_projection
     bloom_img = None
     if cfg.bloom:
         bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
@@ -373,23 +405,21 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     if cfg.shadows and sun is not None:
         sf, packed, map_shape = sun
         shadow = sunmap.shadow_map_pass(
-            fb.depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
+            depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
     elif cfg.shadows and bvh is not None:
         shadow = shadow_ops.shadow_pass(
-            fb.depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,
+            depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, scale=cfg.shadow_scale, checkerboard=cfg.shadow_checkerboard, blur=cfg.shadow_blur,
             znear=params.znear, quality=cfg.shadow_quality, capture=capture)
     if capture is not None:
-        capture.update(g0=g0, shadow=shadow, valid=valid,
-                       layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))
-    image = shade.composite(
-        g0, g1, fb.depth, valid,
+        capture["shadow"] = shadow
+    return shade.composite(
+        g0, g1, depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
         inverse_view_projection=ivp, width=cfg.width, height=cfg.height,
         shadow=shadow, bloom=bloom_img, transmission=transmission,
     )
-    return image, fb, new_state, stats
 
 
 def make_frame_inputs(camera: Camera, settings: RenderSettings, cfg: FrameConfig, sun_direction=None):

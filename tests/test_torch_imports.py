@@ -2,7 +2,8 @@
 numpy and the standard library, never the JAX package or JAX, and the C++
 cooker the port runs is its own copy, equal in output to the reference's.
 
-* an AST scan of every module of the port and of chip_smoke.py;
+* an AST scan of every module of the port (its subpackages too, such as
+  parallel/) and of chip_smoke.py;
 * a fresh interpreter that imports every module of the port and
   chip_smoke.py with `jax`, `ml_dtypes` and `niagara_tpu` refused by a
   sys.meta_path finder;
@@ -66,6 +67,7 @@ def test_port_imports_with_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(modules) > 20
+    assert {"niagara_tpu_torch.parallel.__init__", "niagara_tpu_torch.parallel.mesh"} <= set(modules)
 
 
 def test_port_cooker_matches_reference(tmp_path):

@@ -70,13 +70,10 @@ def parity_scene(cache_dir):
     return g, jscene.upload(g, cooker.small_scene_draws(g.meshes.count))
 
 
-def alpha_parity_scene(cache_dir):
-    """The small scene made textured and alpha-classed by the reference's
-    own functions, as bench.py does: planar uvs, synthesize_materials (draws
-    7, 15, ..., 47 in the alpha class), opacity masks baked from mip 1, the
-    texture table; the near ring (draw 45) joins the alpha class and the uv
-    chart has one tile, as in cooker.small_alpha_scene.  Returns (numpy DeviceScene of the
-    reference's upload, the reference's host texture table)."""
+def alpha_parity_parts(cache_dir):
+    """The inputs of alpha_parity_scene's upload: (geometry with planar
+    uvs, draws, materials, opacity masks, the reference's host texture
+    table)."""
     g = copy.deepcopy(cooker.cook_procedural(str(cache_dir)))
     jsynth.synthesize_planar_uvs(g, tiles=cooker.synth.SMALL_UV_TILES)
     draws = cooker.small_scene_draws(g.meshes.count)
@@ -85,7 +82,17 @@ def alpha_parity_scene(cache_dir):
     draws.material_index[:] = mat_idx
     draws.post_pass[:] = post
     masks = jopacity.bake_opacity(g, draws, materials, mips)
-    table = jtextures.build_texture_table(mips=mips)
+    return g, draws, materials, masks, jtextures.build_texture_table(mips=mips)
+
+
+def alpha_parity_scene(cache_dir):
+    """The small scene made textured and alpha-classed by the reference's
+    own functions, as bench.py does: planar uvs, synthesize_materials (draws
+    7, 15, ..., 47 in the alpha class), opacity masks baked from mip 1, the
+    texture table; the near ring (draw 45) joins the alpha class and the uv
+    chart has one tile, as in cooker.small_alpha_scene.  Returns (numpy DeviceScene of the
+    reference's upload, the reference's host texture table)."""
+    g, draws, materials, masks, table = alpha_parity_parts(cache_dir)
     return jscene.upload(g, draws, materials, masks, texture_table=table), table
 
 
