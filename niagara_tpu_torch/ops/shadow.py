@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import stage_marker
 from . import cullmath
 
 MAX_LEAF = 8
@@ -559,7 +560,7 @@ def world_positions(depth, inverse_view_projection, width: int, height: int, sca
 def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection, width: int, height: int,
                 scale: int = 2, checkerboard: bool = True, blur: bool = True, sun_jitter: float = 1e-2,
                 znear: float = 0.1, parity: int = 0, quality: int = 0, chunked: bool = False,
-                capture: dict | None = None):
+                capture: dict | None = None, stages=None):
     """Ray-traced shadow term [height, width] in [0, 1] (shadow.py:567-662,
     the reference's shadow.comp + shadowfill + shadowblur): rays from the
     world positions at 1/scale resolution toward the sun, its direction
@@ -570,7 +571,8 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     with the alpha test.  chunked=True walks bench.py's budget
     (CHUNKED_STEPS) instead of 1024 steps.  `capture` receives the traced
     rays and their result ("trace": origin, direction, alpha_test,
-    max_steps, occluded)."""
+    max_steps, occluded).  `stages` (a utils.profiling.StageTimer) gets
+    the boundaries "rt rays+trace" and "rt fill+blur"."""
     dev = depth.device
     sw, sh = width // scale, height // scale
     d_small, wpos = world_positions(depth, inverse_view_projection, width, height, scale)
@@ -599,6 +601,7 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     if capture is not None:
         capture["trace"] = dict(origin=origin, direction=direction, alpha_test=quality >= 1, max_steps=max_steps,
                                 occluded=occ)
+    stage_marker(stages)("rt rays+trace")
     if checkerboard:
         occluded = torch.zeros((sh, sw), dtype=torch.bool, device=dev)
         occluded[rows, cols] = occ.reshape(rows.shape)
@@ -610,6 +613,7 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
         shadow = checkerboard_fill(shadow, d_small, parity)
     if blur:
         shadow = shadow_blur(shadow, d_small, znear)
-    if scale == 1:
-        return shadow[:height, :width]
-    return shadow.repeat_interleave(scale, dim=0).repeat_interleave(scale, dim=1)[:height, :width]
+    if scale > 1:
+        shadow = shadow.repeat_interleave(scale, dim=0).repeat_interleave(scale, dim=1)
+    stage_marker(stages)("rt fill+blur")
+    return shadow[:height, :width]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import TASK_WGSIZE, TILE_H, TILE_W
+from ..utils.profiling import stage_marker
 from . import compact, cull, cullmath, raster, raster_tile, shadow
 
 
@@ -164,21 +165,27 @@ def render_sun_map(scene, sf, *, camera_position=None, lod_target=None, lod_enab
                    map_w: int = 2048, map_h: int = 2048, cmd_capacity: int = 1 << 16,
                    cluster_capacity: int = 1 << 16, tri_capacity: int = 1 << 19, pair_capacity: int = 1 << 20,
                    lod_bias: float = 4.0, texel_world: float | None = None, draw_range=None, depth=None,
-                   row_window: tuple[int, int] | None = None, capture: dict | None = None):
+                   row_window: tuple[int, int] | None = None, capture: dict | None = None, stages=None):
     """Depth-only render of the scene (or the draws in `draw_range`) from
     the sun (sunmap.py:212-259).  `depth` carries an earlier batch's map
     (reverse depth merges by max); `row_window=(row0, n_rows)` renders only
     that band of tile rows, `depth` then being the band's rows, and the
     band equals the matching rows of a full render.  A `capture` dict
-    receives the raster kernel's inputs and the pass's counts.  Returns
-    (map [band rows, map_w], drop count)."""
+    receives the raster kernel's inputs and the pass's counts.  `stages`
+    (a utils.profiling.StageTimer) gets the boundaries "sun cull" (draws,
+    commands, clusters), "sun setup" (transform, compact_setup) and "sun
+    raster" (pair emission, sort, raster).  Returns (map [band rows,
+    map_w], drop count)."""
+    mark = stage_marker(stages)
     emit, lod = sun_cull(scene, sf, camera_position, lod_target, lod_enabled, lod_bias=lod_bias,
                          texel_world=texel_world, draw_range=draw_range)
     dvb = torch.ones(scene.num_draws, dtype=torch.int32, device=emit.device)
     cmds = cull.build_task_commands(scene, emit, lod, dvb, capacity=cmd_capacity)
     ccmd, clane, ccount, cover = sun_cluster_cull(scene, sf, cmds, cluster_capacity)
+    mark("sun cull")
     tc = transform_sun(scene, sf, ccmd, clane, ccount, cmds, map_w, map_h)
     st = raster.compact_setup(tc, map_w, map_h, 1e-3, tri_capacity)
+    mark("sun setup")
 
     tiles_x, tiles_y = map_w // TILE_W, map_h // TILE_H
     band_h = (row_window[1] if row_window is not None else tiles_y) * TILE_H
@@ -190,6 +197,7 @@ def render_sun_map(scene, sf, *, camera_position=None, lod_target=None, lod_enab
     alpha = bool(scene.has_alpha_masks)
     depth, _, rst = raster_tile.rasterize_tiles(st, depth, vis, tiles_x=tiles_x, tiles_y=tiles_y,
                                                 pair_capacity=pair_capacity, alpha_test=alpha, row_window=row_window)
+    mark("sun raster")
     if capture is not None:
         capture.update(raster=(rst["tile_start"], rst["pair_tri"], st["rec"], 0, carry, vis), alpha_test=alpha,
                        band_row0=None if row_window is None else row_window[0], draws=cmds.count,

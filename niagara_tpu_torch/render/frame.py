@@ -38,6 +38,7 @@ import torch
 
 from ..config import TILE_H, TILE_W
 from ..utils import math3d
+from ..utils.profiling import stage_marker
 
 from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, shadow as shadow_ops, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
@@ -205,7 +206,7 @@ def frag_span(cfg: FrameConfig) -> int:
 
 
 def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict | None = None,
-               frag_offset: int = 0):
+               frag_offset: int = 0, stages=None):
     """Cull + raster + attribute resolve for one frame.  Returns (fb,
     new_state, stats, attrs [H,W,13], layer): `layer` is the transmission
     class's own dict(depth, vis, attrs) with post_passes=3, else None.
@@ -219,7 +220,15 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     transmission group): "setup" [(tc, capacity)], "setup_out", "raster"
     [(tile_start, pair_tri, rec, frag offset, depth, vis) carried in],
     "raster_alpha_test", "shade" (streams, vis) and, with the layer,
-    "shade_layer"."""
+    "shade_layer".
+
+    `stages` (a utils.profiling.StageTimer, begun by the caller) gets a
+    boundary after each stage: "early draw cull", "early cluster cull"
+    (with the x-order and cluster metadata), "early setup", "early
+    emit+sort+raster", "pyramid", "late cull", "late setup+raster" (the
+    opaque/alpha group) and "layer setup+raster" (the transmission
+    group), "shade" (both buffers and the stats).  Boundaries only record
+    events: the outputs and the launches are those of stages=None."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
     if not 0 <= frag_offset <= INVALID_FRAG - frag_span(cfg):
         raise ValueError(f"frag_offset {frag_offset}: the frame's ids [offset, offset + {frag_span(cfg)}) must stay "
@@ -231,11 +240,15 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps,
                      giant_capacity=cfg.giant_capacity)
     passes = []  # name, tc, capacity, setup out, raster stats, frag offset, carried depth/vis, alpha_test
+    mark = stage_marker(stages)
 
     def render_pass(name, tc, capacity, frag_offset, depth, vis, pair_capacity, alpha_test=False):
         st = setup.setup_compact(tc, scene, params, cfg.width, cfg.height, capacity)
+        if name == "early":
+            mark("early setup")
         out_depth, out_vis, rst = raster_tile.rasterize_tiles(
             st, depth, vis, pair_capacity=pair_capacity, frag_offset=frag_offset, alpha_test=alpha_test, **raster_kw)
+        mark({"early": "early emit+sort+raster", "glass": "layer setup+raster"}.get(name, "late setup+raster"))
         passes.append(dict(name=name, tc=tc, cap=capacity, st=st, rst=rst, off=frag_offset, carry=(depth, vis),
                            alpha=alpha_test))
         return out_depth, out_vis
@@ -254,8 +267,10 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         early_dvb, early_words = torch.ones_like(state.draw_vis), torch.full_like(state.vis_words, 0xFFFFFFFF)
     empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
     emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
+    mark("early draw cull")
     ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
         scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
+    mark("early cluster cull")
     depth, vis = render_pass("early", tc_e, cfg.tri_capacity, frag_offset, *clear(), cfg.pair_capacity)
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -268,10 +283,12 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         # The transmission group (2,) rasterizes into its own cleared layer
         # and never touches the opaque depth/vis (frame.py:390-405)
         atlas = pyramid.build_pyramid(depth, levels, ph, pw)
+        mark("pyramid")
         emit_l, lod_l, new_draw_vis = cull.draw_cull(
             scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
         groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
             scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
+        mark("late cull")
         for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
             off = frag_offset + cfg.tri_capacity + g * cfg.late_tri_cap
             if group == (2,):
@@ -330,6 +347,7 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         tri_count=total("count"),
         pair_count=total("pair_count", "rst"),
     )
+    mark("shade")
     return Framebuffer(depth=depth, vis=vis), new_state, stats, attrs, layer
 
 
@@ -348,7 +366,7 @@ def debug_inputs(capture: dict):
 
 
 def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cfg: FrameConfig,
-                 textures=None, sun=None, bvh=None, capture: dict | None = None):
+                 textures=None, sun=None, bvh=None, capture: dict | None = None, stages=None):
     """Render one frame; `textures` (render.textures.TextureTable on the
     scene's device) textures the materials.  With `cfg.shadows`, `sun` =
     (sun frame, packed map, (map_h, map_w)) -- ops/sunmap.fit_sun_to_draws,
@@ -363,13 +381,15 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     composite.  `capture` receives frame_core's kernel inputs, g0 ("g0"),
     the shade-time valid mask ("valid"), the shadow term ("shadow", None
     when unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and
-    the layer ("layer": its depth, vis and valid mask, or None).  Returns
-    (image [H,W,3], fb, new_state, stats)."""
+    the layer ("layer": its depth, vis and valid mask, or None).
+    `stages` (a utils.profiling.StageTimer the caller has begun) gets
+    frame_core's boundaries, then "G-buffer" and composite_frame's.
+    Returns (image [H,W,3], fb, new_state, stats)."""
     if sun is not None and bvh is not None:
         raise ValueError("render_frame: give the sun map (`sun`) or the ray-traced BVH (`bvh`), not both")
     if capture is not None:
         capture.pop("trace", None)
-    fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture)
+    fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture, stages=stages)
     ivp = shade_params.inverse_view_projection
     transmission = None
     if layer is not None:
@@ -382,44 +402,51 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     if capture is not None:
         capture.update(g0=g0, valid=valid,
                        layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))
+    stage_marker(stages)("G-buffer")
     image = composite_frame(g0, g1, fb.depth, valid, params, shade_params, cfg, transmission=transmission, sun=sun,
-                            bvh=bvh, capture=capture)
+                            bvh=bvh, capture=capture, stages=stages)
     return image, fb, new_state, stats
 
 
 def composite_frame(g0, g1, depth, valid, params, shade_params: ShadeParams, cfg: FrameConfig, *, transmission=None,
-                    sun=None, bvh=None, capture: dict | None = None):
+                    sun=None, bvh=None, capture: dict | None = None, stages=None):
     """The image of a frame's G-buffer (frame.py:643-700): with `cfg.bloom`
     the bloom of g0, with `cfg.shadows` the sun's shadow term from `depth`
     through the packed sun map `sun` or the ShadowBVH `bvh` (render_frame
     says which), then the composite, blending `transmission` = (g0t, g1t,
     depth_t, valid_t) when given.  `capture` receives the shadow term
     ("shadow", None when unshadowed) and the ray-traced pass's rays
-    ("trace")."""
+    ("trace").  `stages` gets the boundaries "bloom", "sun-map resolve+blur"
+    or shadow_pass's ("rt rays+trace", "rt fill+blur"), and "composite"."""
     ivp = shade_params.inverse_view_projection
+    mark = stage_marker(stages)
     bloom_img = None
     if cfg.bloom:
         bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
                                                cfg.height)
+        mark("bloom")
     shadow = None
     if cfg.shadows and sun is not None:
         sf, packed, map_shape = sun
         shadow = sunmap.shadow_map_pass(
             depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
+        mark("sun-map resolve+blur")
     elif cfg.shadows and bvh is not None:
         shadow = shadow_ops.shadow_pass(
             depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, scale=cfg.shadow_scale, checkerboard=cfg.shadow_checkerboard, blur=cfg.shadow_blur,
-            znear=params.znear, quality=cfg.shadow_quality, capture=capture)
+            znear=params.znear, quality=cfg.shadow_quality, capture=capture, stages=stages)
     if capture is not None:
         capture["shadow"] = shadow
-    return shade.composite(
+    image = shade.composite(
         g0, g1, depth, valid,
         camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
         inverse_view_projection=ivp, width=cfg.width, height=cfg.height,
         shadow=shadow, bloom=bloom_img, transmission=transmission,
     )
+    mark("composite")
+    return image
 
 
 def make_frame_inputs(camera: Camera, settings: RenderSettings, cfg: FrameConfig, sun_direction=None):

@@ -1,0 +1,259 @@
+"""The kernel-vs-plain gate (the port's counterpart of
+niagara_tpu/render/parity.py::mosaic_parity_check).
+
+The reference certifies its Mosaic-compiled Pallas kernels against their
+interpreted semantics before a benchmark records numbers.  The port's
+kernels are hand-written CUDA, each with a plain torch version that the
+CPU tests hold to the reference: this gate replays a frame's kernel calls
+on the card and holds each kernel's output to its plain version's on the
+same inputs, bit for bit.
+
+`replay_frame`, `replay_bloom` and `replay_trace` are the replays (the
+end-to-end check chip_smoke.py times and bounds the calls they return);
+`kernel_parity_check` renders a small scene on the card and runs all
+three.  Any difference raises ParityError on the first output that
+differs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..config import TILE_W
+from ..ops.raster import INVALID_FRAG
+
+
+class ParityError(AssertionError):
+    """A kernel's output differs from its plain version's."""
+
+
+def expect(cond, msg: str) -> None:
+    if not cond:
+        raise ParityError(msg)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(a, b, what: str) -> None:
+    """Raise ParityError unless two tensors (or dicts, tuples, lists of
+    them) are equal bit for bit (floats compared as their int32 words)."""
+    if isinstance(a, dict):
+        expect(set(a) == set(b), f"{what}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            same_bits(a[k], b[k], f"{what}[{k}]")
+        return
+    if isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(x, y, f"{what}[{i}]")
+        return
+    expect(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if not torch.equal(_bits(a), _bits(b)):
+        n = int((_bits(a) != _bits(b)).sum())
+        err = float((a.double() - b.double()).abs().nan_to_num(float("inf")).max()) if a.is_floating_point() else None
+        raise ParityError(f"{what}: {n} of {a.numel()} elements differ" + (f", max |diff| {err:.3e}" if err else ""))
+
+
+def replay_frame(capture: dict, scene, params, cfg) -> list[dict]:
+    """Every setup, raster and shade call of a frame captured by
+    frame_core (`capture`), replayed: the kernel wrapper against its plain
+    version on the same inputs, each output bit for bit.  Raster calls are
+    also replayed as a tie merge (the pass's records onto its own result
+    at a higher fragment offset: every pixel ties and must go to the
+    smaller id, giving the result again) and, for the alpha_test variant
+    on a pass with masked records, with seeded random mask bits (which
+    must discard pixels).  Returns one record per call, in call order:
+    kernel name, pass, wrapper module and function ("setup"/"raster_tile",
+    "setup_cuda"/"raster_cuda"/"shade_cuda", with `plain` the plain
+    version's name), `args` and `kwargs` of the call, the kernel's output
+    (`out`) and lines describing what was held (`lines`)."""
+    from ..ops import raster_tile, setup
+
+    W, H, tiles_x = cfg.width, cfg.height, cfg.width // TILE_W
+    calls = []
+    for pass_, (tc, cap) in zip(capture["passes"], capture["setup"]):
+        name = "setup_alpha" if "alpha" in tc else "setup"
+        args = (tc, scene, params, W, H, cap)
+        k_out, p_out = setup.setup_cuda(*args), setup.setup_plain(*args)
+        same_bits(k_out, p_out, f"{name} {pass_}")
+        calls.append(dict(name=name, pass_=pass_, module="setup", fn="setup_cuda", plain="setup_plain", args=args,
+                          kwargs={}, out=k_out,
+                          lines=[f"{name} {pass_}: {int(tc['count'][0])} clusters -> {int(k_out['count'])} triangles "
+                                 f"({int(k_out['dropped'])} over capacity), bit for bit (max_abs_err 0.0)"]))
+
+    for pass_, rargs, alpha in zip(capture["passes"], capture["raster"], capture["raster_alpha_test"]):
+        name = "raster_alpha" if alpha else "raster"
+        args = (*rargs, tiles_x)
+        ts, pt, rec, off, d0, v0, _ = args
+        shifted = raster_tile.raster_cuda(ts, pt, rec, off + cfg.tri_capacity + cfg.late_tri_cap, d0, v0, tiles_x,
+                                          alpha_test=alpha)
+        cases = [("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))]
+        lines = []
+        # a scene uploaded without masks (the sharded frame's shards) has no
+        # masked record to give random bits
+        if alpha and bool((rec[:, 54] > 0).any()):
+            gen = torch.Generator(device=rec.device).manual_seed(0)
+            bits = torch.randint(0, 1 << 16, (rec.shape[0], 4), generator=gen, device=rec.device).float()
+            noisy = rec.clone()
+            noisy[:, 48:52] = torch.where((rec[:, 54] > 0)[:, None], bits, rec[:, 48:52])
+            cases.append((" random masks", (ts, pt, noisy, *args[3:])))
+            r = rec[torch.unique(pt[:int(ts[-1])].long())]
+            r = r[r[:, 54] > 0]
+            lines.append(f"{name} {pass_}: {int((r[:, 48:52] != 65535).any(dim=1).sum())} of {r.shape[0]} masked "
+                         "records have a clear mask cell")
+        results, discard = [], ""
+        for case, a in cases:
+            k_out = raster_tile.raster_cuda(*a, alpha_test=alpha)
+            same_bits(k_out, raster_tile.raster_plain(*a, alpha_test=alpha), f"{name} {pass_}{case}")
+            results.append(k_out[1])
+            if alpha and case != " tie merge":
+                # what the masks do: the same inputs without the mask test
+                changed = int((raster_tile.raster_cuda(*a, alpha_test=False)[1] != k_out[1]).sum())
+                what = "random masks" if case else "the path's masks"
+                discard += f", {what} change {changed} px vs the test off"
+                expect(case == "" or changed > 0, f"{name} {pass_}: random masks discard nothing")
+        expect(torch.equal(results[0], results[1]), f"{name} {pass_}: the tie merge must give the pass's result")
+        lines.append(f"{name} {pass_}: {int(ts[-1])} pairs, depth and vis bit for bit (tie merge"
+                     f"{', random masks' if len(cases) > 2 else ''} too, max_abs_err 0.0){discard}")
+        calls.append(dict(name=name, pass_=pass_, module="raster_tile", fn="raster_cuda", plain="raster_plain",
+                          args=args, kwargs=dict(alpha_test=alpha), out=None, lines=lines))
+
+    # the main visibility buffer's streams, then the transmission layer's
+    # one stream over its own buffer
+    layers = [("", capture["shade"])] + ([(" layer", capture["shade_layer"])] if "shade_layer" in capture else [])
+    for what, (streams, vis) in layers:
+        k_out = raster_tile.shade_cuda(streams, vis)
+        same_bits(k_out, raster_tile.shade_plain(streams, vis), f"shade{what}")
+        calls.append(dict(name="shade", pass_=f"shade{what}", module="raster_tile", fn="shade_cuda",
+                          plain="shade_plain", args=(streams, vis), kwargs={}, out=k_out,
+                          lines=[f"shade{what}: {len(streams)} streams, {int((vis != INVALID_FRAG).sum())} covered px, "
+                                 "bit for bit (max_abs_err 0.0)"]))
+    return calls
+
+
+def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
+    """bloom.cu's kernels on a frame's g0 with its emissive channel
+    replaced by seeded nonzero values (the scenes' own is 0): each level of
+    bloom_down, bloom_up and bloom_x2 against its plain version on the
+    same input, then compute_bloom and sample_bloom_fullres against the
+    plain chain, all bit for bit.  Returns the seeded g0, the mip chain,
+    the levels' calls in order (name, `kernel` and `plain` callables, the
+    input `src` and, for bloom_up, `mip`) and the chain's outputs."""
+    from ..ops import bloom
+
+    gen = torch.Generator(device=g0.device).manual_seed(seed)
+    g0 = g0.clone()
+    g0[..., 3] = torch.rand(g0.shape[:2], generator=gen, device=g0.device) * 0.6 + 0.05
+    mips = [bloom.extract_emissive(g0, width, height)]
+    levels = bloom.bloom_levels(width, height)
+    for _ in range(1, levels):
+        mips.append(bloom._down2(mips[-1]))
+    calls = []
+
+    def level(name, kernel, plain, **inputs):
+        out = plain()
+        same_bits(kernel(), out, f"{name} on {tuple(inputs['src'].shape)}")
+        calls.append(dict(name=name, kernel=kernel, plain=plain, out=out, **inputs))
+        return out
+
+    for src in mips[:-1]:
+        level("bloom_down", lambda s=src: bloom.down2_cuda(s), lambda s=src: bloom._down2(s), src=src)
+    acc = mips[-1]
+    for mip in mips[-2::-1]:
+        acc = level("bloom_up", lambda s=acc, m=mip: bloom.up2_add_cuda(s, m),
+                    lambda s=acc, m=mip: bloom.up2_add_plain(s, m), src=acc, mip=mip)
+    level("bloom_x2", lambda s=acc: bloom.bilinear_x2_cuda(s, height, width),
+          lambda s=acc: bloom._bilinear_x2(s, height, width).permute(1, 2, 0), src=acc)
+
+    half = bloom.compute_bloom(g0, width, height)
+    plain_half = bloom.bloom_chain(g0, width, height, bloom._down2, bloom.up2_add_plain)
+    same_bits(half, plain_half, "compute_bloom against the plain chain")
+    full = bloom.sample_bloom_fullres(half, width, height)
+    same_bits(full, bloom._bilinear_x2(plain_half, height, width).permute(1, 2, 0),
+              "sample_bloom_fullres against the plain expansion")
+    expect(bool((half > 0).all()), "the bloom of a nonzero emissive is not positive")
+    return dict(g0=g0, mips=mips, levels=levels, calls=calls, half=half, full=full)
+
+
+def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
+    """A shadow pass's rays (shadow_pass's capture["trace"]) replayed: the
+    kernel (trace_any_hit<alpha_test>) against the pass's own flags and
+    against trace_plain on the same tensors, every flag and step count
+    equal.  Returns the kernel's name, the plain loop's flags, steps, its
+    seconds and, with `counters`, its per-ray counters
+    (shadow.trace_plain)."""
+    from ..ops import shadow
+
+    o, d, alpha, budget = trace["origin"], trace["direction"], trace["alpha_test"], trace["max_steps"]
+    name = "trace_alpha" if alpha else "trace"
+    k_occ, k_steps = shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha)
+    same_bits(k_occ, trace["occluded"], f"{name}: the replay against the frame's flags")
+    t0 = time.perf_counter()
+    p_occ, p_steps, *counts = shadow.trace_plain(bvh, o, d, max_steps=budget, alpha_test=alpha, counters=counters)
+    if o.device.type == "cuda":
+        torch.cuda.synchronize(o.device)
+    plain_s = time.perf_counter() - t0
+    same_bits((k_occ, k_steps), (p_occ, p_steps), f"{name} against trace_plain")
+    return dict(name=name, occluded=p_occ, steps=p_steps, budget=budget, plain_s=plain_s,
+                counts=counts[0] if counts else None)
+
+
+def kernel_parity_check(geometry, device, *, width: int = 256, height: int = 128) -> dict:
+    """The gate: the small alpha scene (cooker.small_alpha_scene of
+    `geometry`) rendered on the card, two frames from a cold state with
+    `capture={}`; the second frame's setup, raster (opaque and alpha_test)
+    and shade calls replayed (replay_frame), the bloom levels on its g0
+    (replay_bloom), and one trace_any_hit batch of each instance: the
+    shadow pass's rays from its depth without and with the alpha test
+    (replay_trace).  Raises ParityError on the first bit that differs,
+    RuntimeError on a device without the kernels (the CPU: there is
+    nothing to compare).  Returns counts of what was held, as the
+    reference's returns setup_records_live and covered_px."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"kernel_parity_check: no CUDA kernels run on {dev}, so there is nothing to compare with "
+                           "their plain versions")
+    return replay_small_scene(geometry, dev, width=width, height=height)
+
+
+def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128) -> dict:
+    """kernel_parity_check's renders and replays on `device`, which the
+    caller has checked: on the card the kernel wrappers launch their
+    kernels; on the CPU they raise, unless a test has pointed them at
+    their plain versions."""
+    from .. import cooker, scene as scene_mod
+    from ..ops import shadow
+    from . import camera, frame, presets, textures
+
+    dev = torch.device(device)
+    g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
+    table = textures.build_texture_table(mips)
+    sc = scene_mod.from_numpy(scene_mod.upload(g, d, mats, masks, texture_table=table), dev)
+    tex = textures.to_device(table, dev)
+    cfg = frame.FrameConfig(width=width, height=height, post_passes=2, **presets.small_capacities())
+    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+    state = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, dev)
+    cap = {}
+    for _ in range(2):
+        _, fb, state, _ = frame.render_frame(sc, state, params, sp, cfg, textures=tex, capture=cap)
+    calls = replay_frame(cap, sc, params, cfg)
+    live = sum(int(st["count"]) for st in cap["setup_out"])
+    covered = int((fb.vis != INVALID_FRAG).sum())
+    expect(live > 0 and covered > 100, f"the parity scene rendered {live} triangles over {covered} px")
+    bl = replay_bloom(cap["g0"], width, height)
+    bvh = shadow.build_scene_rt(g, d, mats, mips)[0].to(dev)
+    rays = occluded = 0
+    for quality in (0, 1):
+        tcap = {}
+        shadow.shadow_pass(fb.depth, bvh, sun_direction=sp.sun_direction,
+                           inverse_view_projection=sp.inverse_view_projection, width=width, height=height,
+                           quality=quality, capture=tcap)
+        tr = replay_trace(bvh, tcap["trace"])
+        rays += tr["occluded"].numel()
+        occluded += int(tr["occluded"].sum())
+    return dict(setup_records_live=live, covered_px=covered,
+                calls={k: sum(c["name"] == k for c in calls) for k in dict.fromkeys(c["name"] for c in calls)},
+                bloom_levels=len(bl["calls"]), rays=rays, occluded_rays=occluded)

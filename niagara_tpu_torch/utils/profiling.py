@@ -1,10 +1,12 @@
 """Frame timing (niagara_tpu/utils/profiling.py): EWMAs of frame and span
-times and a HUD-style report, and a `torch.profiler` trace.
+times and a HUD-style report, per-stage times of chained frames
+(`StageTimer`, the counterpart of the reference's tools/profile_*.py
+prefix timing), and a `torch.profiler` trace.
 
 On a CUDA device the frame and its spans are timed by CUDA events and
 the frame's end waits for the device: the host returns from a frame long
 before the card has run it, so a host clock around it would time the
-enqueue, not the work."""
+enqueue, not the work.  `StageTimer` waits only once, after the frames."""
 
 from __future__ import annotations
 
@@ -99,6 +101,78 @@ class FrameProfiler:
             tri_s = triangles / (self.frame.value * 1e-3)
             lines.append(f"  {triangles / 1e6:.2f}M tri; {tri_s / 1e9:.1f}B tri/sec")
         return "\n".join(lines)
+
+
+class StageTimer:
+    """Per-stage times of chained frames, without synchronizing inside
+    them (the counterpart of tools/profile_frame.py's prefix timing).
+
+    `begin()` opens a frame; `mark(name)` closes the stage `name`, which
+    ran since the previous boundary.  Each boundary records a CUDA event
+    (on a CUDA device) and the host's perf_counter; `resolve()` waits for
+    the device once and returns, per frame, each stage's device-timeline
+    ms (between its boundary events) and host enqueue ms (between its
+    perf_counter reads).  On the CPU both columns are the host clock.
+
+    A host-bound frame's device timeline includes the device waiting for
+    the host's launches: a stage's device ms is when the device finished
+    it minus when it finished the one before, idle included.  Each column
+    telescopes to its frame's ms (first boundary to last)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self._frames = []
+
+    def _boundary(self, name):
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        self._frames[-1].append((name, ev, time.perf_counter()))
+
+    def begin(self):
+        self._frames.append([])
+        self._boundary(None)
+
+    def mark(self, name: str):
+        self._boundary(name)
+
+    def resolve(self) -> list[dict]:
+        """[{"stages": [(name, device_ms, host_ms)], "device_ms", "host_ms"}]
+        per frame, frames in order; waits for the device once."""
+        if self.cuda and self._frames:
+            self._frames[-1][-1][1].synchronize()
+        out = []
+        for marks in self._frames:
+            rows = []
+            for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
+                host = (h1 - h0) * 1000.0
+                rows.append((name, e0.elapsed_time(e1) if self.cuda else host, host))
+            (_, e0, h0), (_, e1, h1) = marks[0], marks[-1]
+            out.append(dict(stages=rows, device_ms=e0.elapsed_time(e1) if self.cuda else (h1 - h0) * 1000.0,
+                            host_ms=(h1 - h0) * 1000.0))
+        return out
+
+
+def stage_marker(stages):
+    """`stages.mark` of a StageTimer, or a no-op for stages=None (the
+    callers' default: no boundary is recorded)."""
+    return stages.mark if stages is not None else (lambda name: None)
+
+
+def stage_table(frames: list[dict]) -> dict:
+    """Mean device and host ms of each stage over `StageTimer.resolve()`'s
+    frames (a stage named twice in a frame counts twice), in the order
+    the stages first ran, with the frames' mean totals."""
+    table = {}
+    for f in frames:
+        for name, dev, host in f["stages"]:
+            row = table.setdefault(name, [0.0, 0.0])
+            row[0] += dev / len(frames)
+            row[1] += host / len(frames)
+    return dict(stages={k: dict(device_ms=v[0], host_ms=v[1]) for k, v in table.items()},
+                device_ms=sum(f["device_ms"] for f in frames) / len(frames),
+                host_ms=sum(f["host_ms"] for f in frames) / len(frames))
 
 
 @contextlib.contextmanager

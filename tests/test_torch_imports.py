@@ -67,7 +67,8 @@ def test_port_imports_with_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(modules) > 20
-    assert {"niagara_tpu_torch.parallel.__init__", "niagara_tpu_torch.parallel.mesh"} <= set(modules)
+    assert {"niagara_tpu_torch.parallel.__init__", "niagara_tpu_torch.parallel.mesh", "niagara_tpu_torch.bench",
+            "niagara_tpu_torch.render.parity"} <= set(modules)
 
 
 def test_port_cooker_matches_reference(tmp_path):
