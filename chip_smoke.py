@@ -144,6 +144,22 @@ Phases, each reported on its own line:
                    file read back equal; config 0 at one draw past the
                    candidate budget drops draws; config 0's kernels
                    replayed against their plain versions;
+  obj cache     -- a user's .obj through the scene cache
+                   (cooker.cook_or_load): the procedural torus's .obj in a
+                   fresh directory under .cache/ cooked cold (a miss; its
+                   seconds), then warm (a hit; its seconds), the arrays equal
+                   byte for byte, a miss after os.utime of the .obj; then
+                   the viewer on that .obj at its defaults (10,000 draws,
+                   1920x1080, 4 frames), its scene cache cold, then warm,
+                   the counters at zero before each: every frame's kernels
+                   launched, the last frame loss-free and finite; frame ms
+                   (CUDA events) and the seconds to the first frame;
+  entry         -- entry() (niagara_tpu_torch/entry.py) on the card, two
+                   frames with the counters at zero, against entry on the
+                   CPU: stats, state, vis and depth equal, the image within
+                   2e-6; dryrun_multichip(4) on the card (4 shards in this
+                   process), its printed line checked, against the same dry
+                   run on the CPU;
   city small    -- the reduced glTF city (16 blocks) through the .glb ->
                    cook -> DDS -> bake -> table path, two 256x128 frames from
                    its camera with bloom on, kernels on the card against the
@@ -190,7 +206,9 @@ Phases, each reported on its own line:
                    costliest device ops.
   bench         -- after every path above: `python3 -m niagara_tpu_torch.bench`
                    in its own process with BENCH_STAGES=1 BENCH_SHADOW=1
-                   (the city's scene cache warm): kernel_parity "exact",
+                   (the city's scene cache warm): kernel_parity "exact"
+                   (the gate's replays: the small opaque and alpha frames,
+                   a band of each raster instance, bloom, both traces),
                    loss_free, a positive value, the path's kernels launched,
                    the stage tables of the static and animated frames each
                    summing to the frame's ms within 5%; its stderr in
@@ -207,6 +225,7 @@ last line is
 
 from __future__ import annotations
 
+import ast
 import functools
 import importlib
 import importlib.util
@@ -301,6 +320,14 @@ def launch_counts(**counts) -> dict:
 
     check(set(counts) <= set(_build.LAUNCHES), f"unknown kernels {sorted(set(counts) - set(_build.LAUNCHES))}")
     return {k: counts.get(k, 0) for k in _build.LAUNCHES}
+
+
+def zero_launches() -> None:
+    """Every kernel's launch counter (_build.LAUNCHES) to 0."""
+    from niagara_tpu_torch import _build
+
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
 
 
 def nvidia_smi() -> str:
@@ -497,6 +524,14 @@ def run_bench(smi) -> None:
         f"{out['build_s']:.2f} s; launches {out['launches']}; stage tables {sorted(stages)} reconcile "
         f"{ {k: v['reconcile'] for k, v in stages.items()} }; probe {out.get('probe')} on {smi}")
     check(out["kernel_parity"] == "exact", "the bench's kernel gate did not pass")
+    # what the gate held: every kernel instance (render/parity.py)
+    gate = [line for line in proc.stderr.splitlines() if line.startswith("[bench] kernel parity:")]
+    check(len(gate) == 1, "the bench printed no kernel parity line")
+    held = ast.literal_eval(re.search(r"\((\{.*\})\) in", gate[0]).group(1))
+    log("bench", f"the gate held {held}")
+    check(set(held["calls"]) == {"setup", "setup_alpha", "raster", "raster_alpha", "raster_window",
+                                 "raster_alpha_window", "shade"} and held["bloom_levels"] > 0 and held["rays"] > 0,
+          f"the bench's gate did not replay every kernel instance: {held}")
     check(out["loss_free"] is True, "the bench dropped work")
     check(math.isfinite(out["value"]) and out["value"] > 0, "the bench's value is not a positive time")
     check({"setup_alpha", "raster", "raster_alpha", "shade", "bloom_down", "bloom_up", "bloom_x2"}
@@ -587,7 +622,7 @@ def run_all(base, city_job, dev, smi) -> dict:
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
         elif r["name"] == "shade":  # one row per kernel: shade's alpha-path numbers ride in its opaque row
             kernels["shade"]["alpha_path"] = side_row(r, alpha["launches"]["shade"])
-    for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom, _build):
+    for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom):
         kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
@@ -627,6 +662,12 @@ def run_all(base, city_job, dev, smi) -> dict:
 
     # the viewer's configs 0, 1 and 2 (single-pass and two-pass occlusion)
     run_configs(kernels, dev, smi)
+    torch.cuda.empty_cache()
+
+    # a user's .obj through the scene cache and the viewer; the entry
+    # points: entry() and the sharded dry run
+    run_obj_cache(dev, smi)
+    run_entry(dev, smi)
     torch.cuda.empty_cache()
 
     # the procedural glTF city: reduced, then at bench.py's size
@@ -747,8 +788,7 @@ def mesh_frames(tag, scenes, states, cfg, params, sp, tex, sun, expected, smi) -
         _, _, states, stats = mesh.render_sharded_frame(scenes, states, params, sp, cfg, coll, textures=tex, sun=sun)
         log(f"{tag} warmup", f"frame {i}: {frame_line(stats.to_dict())}")
     torch.cuda.synchronize()
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     frame_ms = []
@@ -1116,8 +1156,7 @@ def run_configs(kernels, dev, smi) -> None:
     camera.save_camera(cam_file, cam)
     depth, per = {}, {}
     for config in (0, 1, 2):
-        for k in _build.LAUNCHES:
-            _build.LAUNCHES[k] = 0
+        zero_launches()
         capture = {}
         t0 = time.perf_counter()
         r = render_scene.run(["--config", str(config), "--frames", "2", "--draws", str(CONFIG_DRAWS), "--size",
@@ -1161,6 +1200,204 @@ def run_configs(kernels, dev, smi) -> None:
                            raster_tile)
     for row in rows:
         kernels[row["name"]]["configs_path"] = side_row(row, launches[row["name"]])
+
+
+def to_first_frame(fn, *args, **kw):
+    """(fn's result, seconds from the call to the end of its first
+    render_frame, synchronized with the card)."""
+    import torch
+
+    from niagara_tpu_torch.render import frame
+
+    render_frame, first = frame.render_frame, []
+
+    def timed(*a, **k):
+        out = render_frame(*a, **k)
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+        return out
+
+    t0 = time.perf_counter()
+    frame.render_frame = timed
+    try:
+        out = fn(*args, **kw)
+    finally:
+        frame.render_frame = render_frame
+    return out, first[0] - t0
+
+
+def run_obj_cache(dev, smi) -> None:
+    """A user's .obj through the scene cache (cooker.cook_or_load) and the
+    viewer: in a fresh directory under .cache/, the procedural torus's
+    .obj cooked cold (a miss that writes the cache file) then warm (a hit
+    that leaves it), the arrays equal byte for byte; after os.utime of the
+    .obj the next call is a miss.  Then `python -m
+    niagara_tpu_torch.render_scene x.obj` at its defaults (10,000 draws,
+    1920x1080, 4 frames) on the card, its scene cache in .cache/ cold and
+    then warm: the counters at zero before each run, every frame's kernels
+    launched, the last frame loss-free and finite; frame ms (CUDA events)
+    and the seconds to the first frame, cold against warm."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from niagara_tpu_torch import _build, cooker, render_scene
+    from niagara_tpu_torch.cooker import cook
+    from niagara_tpu_torch.ops import bloom
+
+    os.makedirs(os.path.join(ROOT, ".cache"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="obj_cache_", dir=os.path.join(ROOT, ".cache"))
+    try:
+        t0 = time.perf_counter()
+        obj = cooker.procedural_obj(work)
+        t1 = time.perf_counter()
+        cache = os.path.join(work, os.path.basename(obj) + ".cache.npz")
+
+        def stamp():
+            st = os.stat(cache)
+            return st.st_ino, st.st_mtime_ns
+
+        cold = cooker.cook_or_load([obj], cache_dir=work)
+        t2 = time.perf_counter()
+        written = stamp()
+        warm = cooker.cook_or_load([obj], cache_dir=work)
+        t3 = time.perf_counter()
+        check(stamp() == written, "the warm call rewrote the cache file")
+        a, b = cook._geometry_to_dict(cold), cook._geometry_to_dict(warm)
+        check(set(a) == set(b) and all(a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a),
+              "the cached geometry differs from the cooked one")
+        st = os.stat(obj)
+        os.utime(obj, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
+        t4 = time.perf_counter()
+        cooker.cook_or_load([obj], cache_dir=work)
+        t5 = time.perf_counter()
+        check(stamp() != written, "a touched .obj did not miss the cache")
+        log("obj cache", f"{os.path.basename(obj)} written in {t1 - t0:.3f} s ({os.path.getsize(obj) / 1e6:.1f} MB); "
+            f"cook_or_load cold (miss) {t2 - t1:.3f} s, warm (hit) {t3 - t2:.4f} s, arrays equal byte for byte "
+            f"({len(a)} arrays, {os.path.getsize(cache) / 1e6:.1f} MB cache file); after os.utime a miss again "
+            f"({t5 - t4:.3f} s) | on the host of {smi}")
+
+        frames, (W, H) = 4, FULL
+        levels = bloom.bloom_levels(W, H)
+        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, bloom_down=(levels - 1) * frames,
+                                 bloom_up=(levels - 1) * frames, bloom_x2=frames)
+        for label in ("cold", "warm"):
+            zero_launches()
+            t0 = time.perf_counter()
+            r, first_s = to_first_frame(render_scene.run, [obj])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            s = r["stats"].to_dict()
+            log("obj cache", f"viewer {label} scene cache: {r['scene'].num_draws} draws at {W}x{H}, first frame "
+                f"after {first_s:.2f} s, frame ms (CUDA events) {[round(x, 3) for x in r['frame_ms']]}, {secs:.1f} s "
+                f"with the PNGs | last frame {frame_line(s)} | launches {launches} (expected {expected}) on {smi}")
+            check(r["scene"].num_draws == 10_000 and r["image"].shape == (H, W, 3), "the viewer's defaults changed")
+            check(launches == expected, f"viewer {label}: kernel launch counts")
+            check(all(int(s[k]) == 0 for k in DROPS) and not s["pair_drop_vec"].any(), f"viewer {label} dropped work")
+            check(bool(torch.isfinite(r["image"]).all()) and len(r["paths"]) == frames, f"viewer {label}: output")
+            check(os.path.exists(os.path.join(render_scene.SCENE_CACHE, os.path.basename(obj) + ".cache.npz")),
+                  "the viewer wrote no scene cache")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_entry(dev, smi) -> None:
+    """The entry points (niagara_tpu_torch/entry.py): entry() on the card,
+    two frames through its fn with the counters at zero (each frame's ms
+    by CUDA events), against entry(device="cpu"): stats, state and vis
+    equal, depth exact, the image within 2e-6 (small_reference's
+    tolerances); then dryrun_multichip(4) on the card (4 shards in this
+    process), its printed line checked, against the same dry run on the
+    CPU the same way."""
+    import contextlib
+    import io
+
+    import torch
+
+    from niagara_tpu_torch import _build, entry
+    from niagara_tpu_torch.ops import bloom
+    from niagara_tpu_torch.render import frame
+
+    kept = {}
+    render_frame = frame.render_frame
+
+    def keep(*a, **k):  # fn returns the image and state only; keep the rest
+        out = render_frame(*a, **k)
+        kept.setdefault(str(out[0].device), []).append(out)
+        return out
+
+    frame.render_frame = keep
+    try:
+        fn, (scene, state, params, sp) = entry.entry(device="cpu")
+        for _ in range(2):
+            _, state = fn(scene, state, params, sp)
+        fn, (scene, state, params, sp) = entry.entry()
+        zero_launches()
+        times = []
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _, state = fn(scene, state, params, sp)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        launches = dict(_build.LAUNCHES)
+    finally:
+        frame.render_frame = render_frame
+    cfg = frame.FrameConfig(**entry.ENTRY_CONFIG)
+    levels = bloom.bloom_levels(cfg.width, cfg.height)
+    expected = launch_counts(setup=4, raster=4, shade=2, bloom_down=2 * (levels - 1), bloom_up=2 * (levels - 1),
+                             bloom_x2=2)
+    (ci, cfb, cst, cs), (gi, gfb, gst, gs) = kept["cpu"][-1], kept[str(dev)][-1]
+    cs, gs = cs.to_dict(), gs.to_dict()
+    image_err = float((ci - gi.cpu()).abs().max())
+    log("entry", f"entry(): {cfg.width}x{cfg.height}, {scene.num_draws} draws, two frames from a cold state, frame ms "
+        f"(CUDA events) {[round(t, 3) for t in times]} | frame 2 {frame_line(gs)} | against entry(device='cpu'): "
+        f"stats/state/vis equal, depth max_abs_err {float((cfb.depth - gfb.depth.cpu()).abs().max()):.3g}, image "
+        f"max_abs_err {image_err:.3g} (tolerances 0 / 2e-6) | launches {launches} (expected {expected}) on {smi}")
+    check(launches == expected, "entry(): kernel launch counts")
+    check(gi.shape == (cfg.height, cfg.width, 3) and bool(torch.isfinite(gi).all()), "entry(): image")
+    check(all(np.array_equal(cs[k], gs[k]) for k in cs), "entry(): stats differ from the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(frame.state_to_numpy(cst), frame.state_to_numpy(gst))),
+          "entry(): state differs from the CPU")
+    check(torch.equal(cfb.vis, gfb.vis.cpu()) and torch.equal(cfb.depth, gfb.depth.cpu()) and image_err <= 2e-6,
+          "entry(): the frame differs from the CPU")
+
+    n = MESH_SHARDS
+    runs = {}
+    for where in ("cpu", dev):
+        if where != "cpu":
+            zero_launches()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = entry.dryrun_multichip(n, device=where)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if where != "cpu":
+            launches = dict(_build.LAUNCHES)
+        s = out["stats"]
+        line = f"dryrun_multichip({n}): ok; visible_draws={int(s.visible_draws)} clusters={int(s.late_clusters)}\n"
+        check(printed.getvalue() == line, f"dryrun_multichip({n}) printed {printed.getvalue()!r}")
+        runs[str(where)] = (out, secs, printed.getvalue().strip())
+    (c, _, _), (g, secs, line) = runs["cpu"], runs[str(dev)]
+    levels = bloom.bloom_levels(*(entry.DRYRUN_CONFIG[k] for k in ("width", "height")))
+    expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n, bloom_down=levels - 1,
+                             bloom_up=levels - 1, bloom_x2=1)
+    cs, gs = c["stats"].to_dict(), g["stats"].to_dict()
+    image_err = float((c["image"] - g["image"].cpu()).abs().max())
+    log("entry", f"{line} ({secs:.2f} s on the card, the cook a cache hit) | {frame_line(gs)} | against the CPU: "
+        f"stats/states/gdepth/gvis equal, image max_abs_err {image_err:.3g} (tolerance 2e-6) | launches {launches} "
+        f"(expected {expected}) on {smi}")
+    check(launches == expected, f"dryrun_multichip({n}): kernel launch counts")
+    check(all(np.array_equal(cs[k], gs[k]) for k in cs), "the dry run's stats differ from the CPU")
+    check(all(np.array_equal(a, b) for x, y in zip(c["states"], g["states"])
+              for a, b in zip(frame.state_to_numpy(x), frame.state_to_numpy(y))), "the dry run's states differ")
+    check(torch.equal(c["fb"].vis, g["fb"].vis.cpu()) and torch.equal(c["fb"].depth, g["fb"].depth.cpu())
+          and image_err <= 2e-6, "the dry run's frame differs from the CPU")
 
 
 def side_row(r: dict, launches: int) -> dict:
@@ -1239,8 +1476,7 @@ def run_path(tag, ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=N
         torch.cuda.synchronize()
         log(f"{tag}warmup", f"frame {i}: {start.elapsed_time(end):.3f} ms (capturing) | {frame_line(stats.to_dict())}")
 
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    zero_launches()
     frame_ms, steady = [], {}
     for i in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1557,8 +1793,7 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
     upd_caps = presets.sunmap_update_capacities(anim_n, sun_caps)
     kw = dict(map_w=SUN_MAP, map_h=SUN_MAP, texel_world=texel)
 
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     static, drop = sunmap.build_static_sun_map(ds, sf, batch=SUN_BATCH, num_draws=static_n, **kw, **sun_caps)
@@ -1612,8 +1847,7 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
         (_, _, state, stats), udrop = step(state, 0.3 * (i + 1))
         log("sun warmup", f"frame {i}: {frame_line(stats.to_dict())} sun update drops {int(udrop)}")
     torch.cuda.synchronize()
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    zero_launches()
     upd_ms, frame_ms = [], []
     for i in range(2, 5):
         cap, upd = {}, {}
@@ -1661,8 +1895,7 @@ def sun_stages(step, state, dev, smi) -> None:
 
     runs = []
     for timed in (False, True):
-        for k in _build.LAUNCHES:
-            _build.LAUNCHES[k] = 0
+        zero_launches()
         timer, outer = StageTimer(dev), StageTimer(dev)
         outer.begin()
         if timed:
@@ -1691,44 +1924,35 @@ def sun_stages(step, state, dev, smi) -> None:
 
 def compare_window(tag, sun, raster_tile, base=None) -> dict:
     """The window variant, both instances, on the steady frame's band and on
-    the forced band, each with a tie merge, against raster_plain (exact);
-    time, plain time and bound of the path's instance on the steady band
-    (and the baseline's time, in turns, when given)."""
-    import torch
+    the forced band, each with a tie merge, against raster_plain through
+    the package's replay (render/parity.py replay_band: bit for bit); time,
+    plain time and bound of the path's instance on the steady band (and
+    the baseline's time, in turns, when given)."""
+    from niagara_tpu_torch.render import parity
 
     tiles_x = SUN_MAP // 128
     row = None
     for label, cap in (("steady frame 4 band", sun["update"]), ("forced band", sun["forced"])):
-        ts, pt, rec, off, d0, v0 = cap["raster"]
         row0 = cap["band_row0"]
-        for alpha in (True, False):
-            name = "raster_alpha_window" if alpha else "raster_window"
-            args = (ts, pt, rec, off, d0, v0, tiles_x)
-            shifted = raster_tile.raster_cuda(ts, pt, rec, off + rec.shape[0], d0, v0, tiles_x, alpha_test=alpha,
-                                              band_row0=row0)
-            results = []
-            for case, a in (("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))):
-                kd, kv = raster_tile.raster_cuda(*a, alpha_test=alpha, band_row0=row0)
-                pd, pv = raster_tile.raster_plain(*a, alpha_test=alpha, band_row0=row0)
-                check(torch.equal(kv, pv) and torch.equal(kd, pd), f"{label} {name}{case}: differs from raster_plain")
-                results.append(kv)
-            check(torch.equal(results[0], results[1]), f"{label} {name}: the tie merge must give the band's result")
-            changed = int((results[0] != v0).sum())
-            log(tag, f"{label} {name}: band rows {row0 * 8}..{row0 * 8 + d0.shape[0]}, {int(ts[-1])} pairs, "
-                f"{changed} px written, depth and vis equal to raster_plain (tie merge too), max_abs_err 0.0")
-            if alpha and row is None:
-                old = (lambda: base[2].raster_cuda(*args, alpha_test=True, band_row0=row0)) if base else None
-                new = lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0)  # noqa: E731
-                ms, base_ms = in_turns(new, old, 20)
-                pms = cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=True, band_row0=row0), 2)
-                nbytes, ops = raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
-                bms, by = bound(nbytes, ops)
-                was = f" (baseline {base_ms:.4f} ms)" if base else ""
-                log(tag, f"{label} {name}: kernel {ms:.4f} ms{was} vs plain {pms:.4f} ms per launch (1 launch per "
-                    f"frame), bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
-                row = dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/raster.cu",
-                           replaces="niagara_tpu/ops/raster_tile.py:393", max_abs_err=0.0, ms=ms, plain_ms=pms,
-                           bound_ms=bms, bound_by=by, library_ms=None, **({"baseline_ms": base_ms} if base else {}))
+        args = (*cap["raster"], tiles_x)
+        for c in parity.replay_band(args, row0):
+            for line in c["lines"]:
+                log(tag, f"{label} {line}")
+        if row is None:
+            d0 = args[4]
+            name = "raster_alpha_window"
+            old = (lambda: base[2].raster_cuda(*args, alpha_test=True, band_row0=row0)) if base else None
+            new = lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0)  # noqa: E731
+            ms, base_ms = in_turns(new, old, 20)
+            pms = cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=True, band_row0=row0), 2)
+            nbytes, ops = raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
+            bms, by = bound(nbytes, ops)
+            was = f" (baseline {base_ms:.4f} ms)" if base else ""
+            log(tag, f"{label} {name}: kernel {ms:.4f} ms{was} vs plain {pms:.4f} ms per launch (1 launch per "
+                f"frame), bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+            row = dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/raster.cu",
+                       replaces="niagara_tpu/ops/raster_tile.py:393", max_abs_err=0.0, ms=ms, plain_ms=pms,
+                       bound_ms=bms, bound_by=by, library_ms=None, **({"baseline_ms": base_ms} if base else {}))
     return row
 
 
@@ -1762,8 +1986,7 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
         f"{bvh.tri_alpha.shape[0]}, {nbytes / 1e6:.1f} MB on the card | TLAS build {build_s:.3f} s (build_scene_rt), "
         f"refit {refit_s:.3f} s (refit_tlas, cached topology), upload {time.perf_counter() - t0:.3f} s")
     if depth is not None:
-        for k in _build.LAUNCHES:
-            _build.LAUNCHES[k] = 0
+        zero_launches()
         cap, ev = {}, [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         term = shadow.shadow_pass(depth, bvh, sun_direction=sp.sun_direction,
@@ -1781,8 +2004,7 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
         check(bool(torch.isfinite(term).all()) and launches.get("trace") == 1, "the chunked pass failed")
 
     cfg = dataclasses.replace(cfg, shadows=True, shadow_quality=1 if mats is not None else 0)
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    zero_launches()
     frame_ms, cap = [], {}
     for i in range(n_frames):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1860,7 +2082,7 @@ def compare_trace(tag, label, bvh, trace, shadow) -> dict:
                 out_of_budget=float((p_steps < 0).double().mean()))
 
 
-def compare_bloom(tag, g0, width: int, height: int, bloom, _build) -> list[dict]:
+def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:
     """bloom.cu's kernels on a frame's g0 with its emissive channel replaced
     by seeded nonzero values, through the package's replay
     (render/parity.py replay_bloom): each level against its plain version

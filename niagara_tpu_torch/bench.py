@@ -2,7 +2,8 @@
 
 bench.py's frames, step for step, on the PyTorch/CUDA port (bench.py is
 the JAX reference's, which needs JAX and kitten.obj): the procedural
-torus (cooker.cook_procedural, the kitten's stand-in) instanced
+torus (cooker.cook_procedural, the kitten's stand-in, through the scene
+cache as bench.py:69 cooks the kitten) instanced
 BENCH_DRAWS times by the reference's PCG scatter, rendered at 1920x1080
 as the full frame: two-pass occlusion culling, the alpha-tested late
 pass, textured deferred shading, sun-map shadows over an animated tail,
@@ -302,8 +303,8 @@ def run(k: dict, dev) -> dict:
             f"{_build.build_info['path']}")
     t0 = time.perf_counter()
     geometry = cooker.cook_procedural()
-    log(f"procedural torus cooked in {time.perf_counter() - t0:.1f} s: {geometry.meshes.count} mesh, "
-        f"{int(geometry.meshes.lod_index_count[0, 0]) // 3} LOD-0 triangles")
+    log(f"procedural torus cooked or loaded from its scene cache in {time.perf_counter() - t0:.1f} s: "
+        f"{geometry.meshes.count} mesh, {int(geometry.meshes.lod_index_count[0, 0]) // 3} LOD-0 triangles")
 
     parity = "skipped"
     if k["PARITY"]:

@@ -5,8 +5,9 @@ The library is built by g++ at first use into niagara_tpu_torch/build/,
 under a name carrying the hash of the sources and flags, so a changed
 source rebuilds it and nothing is written outside the port's build
 directory.  The dtypes and structures mirror native/cooker.h (and
-niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` / `load_dds` /
-`build_bvh` / `build_bvh_boxes` / `refit_bvh_boxes` these are).
+niagara_tpu/cooker/bindings.py, whose `load_obj` / `cook_mesh` /
+`build_meshlets` / `compute_meshlet_bounds` / `simplify` / `simplify_scale` /
+`load_dds` / `build_bvh` / `build_bvh_boxes` / `refit_bvh_boxes` these are).
 """
 
 from __future__ import annotations
@@ -101,7 +102,22 @@ def get_lib() -> ctypes.CDLL:
             lib.ck_load_dds.restype = ctypes.POINTER(ctypes.c_uint8)
             lib.ck_load_dds.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
             lib.ck_free_rgba.argtypes = [ctypes.c_void_p]
-            P, U32 = ctypes.c_void_p, ctypes.c_uint32
+            P, U32, F32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float
+            # the cook's stages, exposed for tests (bindings.py:118-165)
+            lib.ck_generate_vertex_remap.restype = U32
+            lib.ck_generate_vertex_remap.argtypes = [P, P, U32]
+            lib.ck_optimize_vertex_cache.restype = None
+            lib.ck_optimize_vertex_cache.argtypes = [P, U32, U32]
+            lib.ck_meshlet_bound.restype = U32
+            lib.ck_meshlet_bound.argtypes = [U32, U32, U32]
+            lib.ck_build_meshlets.restype = U32
+            lib.ck_build_meshlets.argtypes = [P, U32, P, U32, U32, U32, F32, U32, P, P, P, P]
+            lib.ck_compute_meshlet_bounds.restype = None
+            lib.ck_compute_meshlet_bounds.argtypes = [P, U32, P, U32, P, U32, P]
+            lib.ck_simplify.restype = U32
+            lib.ck_simplify.argtypes = [P, P, U32, P, U32, U32, F32, ctypes.POINTER(F32)]
+            lib.ck_simplify_scale.restype = F32
+            lib.ck_simplify_scale.argtypes = [P, U32]
             lib.ck_build_bvh.restype = U32
             lib.ck_build_bvh.argtypes = [P, U32, P, U32, P, U32, P]
             lib.ck_build_bvh_boxes.restype = U32
@@ -118,6 +134,10 @@ def _read(ptr, count: int, dtype: np.dtype) -> np.ndarray:
         return np.empty(0, dtype=dtype)
     raw = ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8 * nbytes))
     return np.frombuffer(bytes(raw.contents), dtype=dtype).copy()
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
 
 
 def load_obj(path: str) -> np.ndarray:
@@ -164,6 +184,64 @@ def cook_mesh(vertices: np.ndarray, indices: np.ndarray, max_scale: float = 1.0,
     return result
 
 
+def build_meshlets(positions: np.ndarray, indices: np.ndarray, max_vertices: int = 64, max_triangles: int = 96,
+                   cone_weight: float = 0.25):
+    """Meshlets over one index range (bindings.py:231): (vertices [n,
+    max_vertices] u32, triangles [n, max_triangles, 3] u8, vertex counts
+    [n] u32, triangle counts [n] u32), the output buffers doubled until
+    the build fits."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, dtype=np.float32)
+    indices = np.ascontiguousarray(indices, dtype=np.uint32)
+    bound = lib.ck_meshlet_bound(len(indices), max_vertices, max_triangles)
+    while True:
+        mv = np.zeros((bound, max_vertices), dtype=np.uint32)
+        mt = np.zeros((bound, max_triangles * 3), dtype=np.uint8)
+        vc = np.zeros(bound, dtype=np.uint32)
+        tc = np.zeros(bound, dtype=np.uint32)
+        n = lib.ck_build_meshlets(_ptr(positions), len(positions), _ptr(indices), len(indices), max_vertices,
+                                  max_triangles, cone_weight, bound, _ptr(mv), _ptr(mt), _ptr(vc), _ptr(tc))
+        if n != 0xFFFFFFFF:
+            return mv[:n], mt[:n].reshape(n, max_triangles, 3), vc[:n], tc[:n]
+        bound *= 2
+
+
+def compute_meshlet_bounds(positions: np.ndarray, meshlet_vertices: np.ndarray,
+                           meshlet_triangles: np.ndarray) -> np.ndarray:
+    """One meshlet's bounding sphere and backface cone before quantization
+    (bindings.py:252): f32 [cx, cy, cz, radius, ax, ay, az, cutoff]."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, dtype=np.float32)
+    mv = np.ascontiguousarray(meshlet_vertices, dtype=np.uint32)
+    mt = np.ascontiguousarray(meshlet_triangles, dtype=np.uint8).reshape(-1)
+    out = np.zeros(8, dtype=np.float32)
+    lib.ck_compute_meshlet_bounds(_ptr(positions), len(positions), _ptr(mv), len(mv), _ptr(mt), len(mt) // 3,
+                                  _ptr(out))
+    return out
+
+
+def simplify(indices: np.ndarray, positions: np.ndarray, target_index_count: int, target_error: float = 0.1):
+    """QEM simplification toward `target_index_count` indices
+    (bindings.py:264): (indices u32, the largest collapse error in
+    unit-extent units)."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, dtype=np.float32)
+    indices = np.ascontiguousarray(indices, dtype=np.uint32)
+    dst = np.zeros_like(indices)
+    err = ctypes.c_float()
+    n = lib.ck_simplify(_ptr(dst), _ptr(indices), len(indices), _ptr(positions), len(positions), target_index_count,
+                        target_error, ctypes.byref(err))
+    return dst[:n], float(err.value)
+
+
+def simplify_scale(positions: np.ndarray) -> float:
+    """The mesh's extent (the largest side of its box), which turns a
+    simplification error into world units (bindings.py:278)."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, dtype=np.float32)
+    return float(lib.ck_simplify_scale(_ptr(positions), len(positions)))
+
+
 def load_dds(path: str) -> tuple[list[np.ndarray], int]:
     """Decode a DDS texture (BC1-5, BC6H, BC7 or RGBA8) to RGBA8 mips
     (bindings.py:364).  Returns (mips: list of [h,w,4] uint8, format 1..9)."""
@@ -184,10 +262,6 @@ def load_dds(path: str) -> tuple[list[np.ndarray], int]:
         out.append(flat[off * 4:(off + mw * mh) * 4].reshape(mh, mw, 4))
         off += mw * mh
     return out, fmt
-
-
-def _ptr(a: np.ndarray) -> ctypes.c_void_p:
-    return ctypes.c_void_p(a.ctypes.data)
 
 
 def _grow(build, count: int, min_cap: int):

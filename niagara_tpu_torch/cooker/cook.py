@@ -6,15 +6,18 @@
 * `procedural_obj` writes the port's stand-in mesh: a closed, non-convex,
   seeded noise-displaced thin torus with smooth normals (57,344
   triangles), so the port needs no external asset.
-* `CACHE_VERSION`, `_hash_file_meta` and `_geometry_to_dict` /
-  `_geometry_from_dict` (cook.py:20-27, 152-181) serve the glTF scene
-  cache (cooker/gltf.py).
+* `cook_or_load`, `save_scene_cache` and `load_scene_cache` (cook.py:183-227)
+  cook OBJ files through a versioned scene cache; cache files
+  interchange with the reference's.  `CACHE_VERSION`, `_hash_file_meta`
+  and `_geometry_to_dict` / `_geometry_from_dict` (cook.py:20-27,
+  152-181) also serve the glTF scene cache (cooker/gltf.py).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import zipfile
 
 import numpy as np
 
@@ -144,15 +147,65 @@ def assemble(meshes_cooked: list[dict]) -> Geometry:
     )
 
 
-def cook_obj_meshes(paths: list[str], build_lods: bool = True) -> Geometry:
+def cook_obj_meshes(paths: list[str], max_scale: float = 1.0, build_lods: bool = True) -> Geometry:
     """Cook one mesh per OBJ file, with its LOD chain unless `build_lods`
     is false (cook.py:138)."""
     cooked = []
     for path in paths:
         flat = bindings.load_obj(path)
         indices = np.arange(len(flat), dtype=np.uint32)
-        cooked.append(bindings.cook_mesh(flat, indices, build_lods=build_lods))
+        cooked.append(bindings.cook_mesh(flat, indices, max_scale=max_scale, build_lods=build_lods))
     return assemble(cooked)
+
+
+def save_scene_cache(cache_path: str, geometry: Geometry, source_hash: int) -> None:
+    """Versioned snapshot of cooked geometry (cook.py:183): the arrays of
+    `_geometry_to_dict` and `__meta__` = [CACHE_VERSION, low and high 32
+    bits of the source hash] in one .npz, written under a temporary name
+    and renamed, so a concurrent reader sees the old file or the new one."""
+    arrays = _geometry_to_dict(geometry)
+    arrays["__meta__"] = np.array([CACHE_VERSION, source_hash & 0xFFFFFFFF, source_hash >> 32], dtype=np.uint64)
+    tmp = f"{cache_path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:  # a file object: np.savez would append .npz to a name
+        np.savez(f, **arrays)
+    os.replace(tmp, cache_path)
+
+
+def load_scene_cache(cache_path: str, source_hash: int) -> Geometry | None:
+    """The cached geometry, or None when the file is missing, unreadable,
+    of another CACHE_VERSION or of another source hash (cook.py:191)."""
+    if not os.path.exists(cache_path):
+        return None
+    try:
+        with np.load(cache_path) as data:
+            meta = data["__meta__"]
+            if int(meta[0]) != CACHE_VERSION:
+                return None
+            if int(meta[1]) | (int(meta[2]) << 32) != source_hash & 0xFFFFFFFFFFFFFFFF:
+                return None
+            return _geometry_from_dict({k: data[k] for k in data.files if k != "__meta__"})
+    except (OSError, EOFError, KeyError, TypeError, ValueError, zipfile.BadZipFile):
+        return None  # a truncated or foreign file is a miss, as in the reference
+
+
+def cook_or_load(paths: list[str], cache_dir: str | None = None, build_lods: bool = True) -> Geometry:
+    """Cook OBJ files through the scene cache in `cache_dir` (none: always
+    cook), keyed by the sources' mtime and size (cook.py:209).  As in the
+    reference, `build_lods` is not part of the key."""
+    source_hash = CACHE_VERSION
+    for p in paths:
+        source_hash ^= _hash_file_meta(p)
+    cache_path = None
+    if cache_dir is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        cache_path = os.path.join(cache_dir, "_".join(os.path.basename(p) for p in paths) + ".cache.npz")
+        cached = load_scene_cache(cache_path, source_hash)
+        if cached is not None:
+            return cached
+    geometry = cook_obj_meshes(paths, build_lods=build_lods)
+    if cache_path is not None:
+        save_scene_cache(cache_path, geometry, source_hash)
+    return geometry
 
 
 # the stand-in mesh: a thin torus whose tube radius carries seeded noise,
@@ -214,6 +267,7 @@ def procedural_obj(cache_dir: str = CACHE_DIR) -> str:
 
 
 def cook_procedural(cache_dir: str = CACHE_DIR) -> Geometry:
-    """The procedural mesh cooked through the C++ cooker, with its LOD chain."""
-    return cook_obj_meshes([procedural_obj(cache_dir)])
+    """The procedural mesh cooked through the C++ cooker, with its LOD
+    chain, by way of the scene cache in `cache_dir` (bench.py:69's step)."""
+    return cook_or_load([procedural_obj(cache_dir)], cache_dir=cache_dir)
 

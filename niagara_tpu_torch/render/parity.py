@@ -8,11 +8,14 @@ CPU tests hold to the reference: this gate replays a frame's kernel calls
 on the card and holds each kernel's output to its plain version's on the
 same inputs, bit for bit.
 
-`replay_frame`, `replay_bloom` and `replay_trace` are the replays (the
-end-to-end check chip_smoke.py times and bounds the calls they return);
-`kernel_parity_check` renders a small scene on the card and runs all
-three.  Any difference raises ParityError on the first output that
-differs.
+`replay_frame`, `replay_band` (of `band_args`), `replay_bloom` and
+`replay_trace` are the replays (the end-to-end check chip_smoke.py times and bounds the calls
+they return); `kernel_parity_check` renders the small opaque and alpha
+scenes on the card and runs all four, so every kernel instance is held:
+setup_kernel<false> and <true>, raster_tile<false> and <true> over the
+whole grid and over a band (band_row0), shade_px, the three bloom
+kernels and trace_any_hit<false> and <true>.  Any difference raises
+ParityError on the first output that differs.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 
 import torch
 
-from ..config import TILE_W
+from ..config import TILE_H, TILE_W
 from ..ops.raster import INVALID_FRAG
 
 
@@ -134,6 +137,52 @@ def replay_frame(capture: dict, scene, params, cfg) -> list[dict]:
     return calls
 
 
+def band_args(setup_out, cfg, row0: int, n_rows: int) -> tuple:
+    """raster_cuda's arguments for the band of tile rows [row0, row0 +
+    n_rows) of one pass's set-up triangles (`setup_out`), as the sun map's
+    band update renders it (ops/sunmap.py): the band's pairs (emit_pairs'
+    row_window) onto a cleared band at fragment offset 0."""
+    from ..ops import raster_tile
+
+    tiles_x, tiles_y = cfg.width // TILE_W, cfg.height // TILE_H
+    pairs = raster_tile.emit_pairs(setup_out, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=cfg.late_pair_cap,
+                                   row_window=(row0, n_rows), giant_capacity=cfg.giant_capacity)
+    depth = torch.zeros((n_rows * TILE_H, cfg.width), dtype=torch.float32, device=setup_out["rec"].device)
+    vis = torch.full(depth.shape, INVALID_FRAG, dtype=torch.int32, device=depth.device)
+    return pairs["tile_start"], pairs["pair_tri"], setup_out["rec"], 0, depth, vis, tiles_x
+
+
+def replay_band(args, row0: int) -> list[dict]:
+    """A band raster call (`args`: raster_cuda's positional arguments, the
+    band's depth and vis carried in) replayed through both raster
+    instances with `band_row0=row0`, each against raster_plain bit for
+    bit, with a tie merge (the band onto its own result at a higher
+    fragment offset gives that result again).  Returns one record per
+    instance ("raster_window", "raster_alpha_window"), in replay_frame's
+    form."""
+    from ..ops import raster_tile
+
+    ts, pt, rec, off, d0, v0, tiles_x = args
+    calls = []
+    for alpha in (False, True):
+        name = "raster_alpha_window" if alpha else "raster_window"
+        kw = dict(alpha_test=alpha, band_row0=row0)
+        what = f"{name} band rows {row0 * TILE_H}..{row0 * TILE_H + d0.shape[0]}"
+        shifted = raster_tile.raster_cuda(ts, pt, rec, off + rec.shape[0], d0, v0, tiles_x, **kw)
+        results = []
+        for case, a in (("", args), (" tie merge", (ts, pt, rec, off, *shifted, tiles_x))):
+            k_out = raster_tile.raster_cuda(*a, **kw)
+            same_bits(k_out, raster_tile.raster_plain(*a, **kw), what + case)
+            results.append(k_out[1])
+        expect(torch.equal(results[0], results[1]), f"{what}: the tie merge must give the band's result")
+        written = int((results[0] != v0).sum())
+        calls.append(dict(name=name, pass_="band", module="raster_tile", fn="raster_cuda", plain="raster_plain",
+                          args=args, kwargs=kw, out=None, written=written,
+                          lines=[f"{what}: {int(ts[-1])} pairs, {written} px written, depth and vis bit for bit "
+                                 "(tie merge too, max_abs_err 0.0)"]))
+    return calls
+
+
 def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
     """bloom.cu's kernels on a frame's g0 with its emissive channel
     replaced by seeded nonzero values (the scenes' own is 0): each level of
@@ -202,15 +251,18 @@ def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
 
 
 def kernel_parity_check(geometry, device, *, width: int = 256, height: int = 128) -> dict:
-    """The gate: the small alpha scene (cooker.small_alpha_scene of
-    `geometry`) rendered on the card, two frames from a cold state with
-    `capture={}`; the second frame's setup, raster (opaque and alpha_test)
-    and shade calls replayed (replay_frame), the bloom levels on its g0
-    (replay_bloom), and one trace_any_hit batch of each instance: the
-    shadow pass's rays from its depth without and with the alpha test
-    (replay_trace).  Raises ParityError on the first bit that differs,
-    RuntimeError on a device without the kernels (the CPU: there is
-    nothing to compare).  Returns counts of what was held, as the
+    """The gate: the small opaque scene (cooker.small_scene_draws of
+    `geometry`, post_passes=1) and the small alpha scene
+    (cooker.small_alpha_scene, post_passes=2) rendered on the card, two
+    frames each from a cold state with `capture={}`; each second frame's
+    setup (no-alpha and alpha), raster (opaque and alpha_test) and shade
+    calls replayed (replay_frame), a band of the alpha frame's late pass
+    (replay_band: both raster instances with a nonzero band_row0), the
+    bloom levels on its g0 (replay_bloom), and one trace_any_hit batch of
+    each instance: the shadow pass's rays from its depth without and with
+    the alpha test (replay_trace).  Raises ParityError on the first bit
+    that differs, RuntimeError on a device without the kernels (the CPU:
+    there is nothing to compare).  Returns counts of what was held, as the
     reference's returns setup_records_live and covered_px."""
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -229,20 +281,34 @@ def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128)
     from . import camera, frame, presets, textures
 
     dev = torch.device(device)
+
+    def two_frames(sc, post_passes, tex=None):
+        cfg = frame.FrameConfig(width=width, height=height, post_passes=post_passes, **presets.small_capacities())
+        params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+        state = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, dev)
+        cap = {}
+        for _ in range(2):
+            _, fb, state, _ = frame.render_frame(sc, state, params, sp, cfg, textures=tex, capture=cap)
+        live = sum(int(st["count"]) for st in cap["setup_out"])
+        covered = int((fb.vis != INVALID_FRAG).sum())
+        expect(live > 0 and covered > 100, f"a parity scene rendered {live} triangles over {covered} px")
+        held["live"] += live
+        held["covered"] += covered
+        return cfg, params, sp, cap, fb
+
+    held = dict(live=0, covered=0)
+    opaque = scene_mod.from_numpy(scene_mod.upload(geometry, cooker.small_scene_draws(geometry.meshes.count)), dev)
+    cfg, params, _, cap, _ = two_frames(opaque, 1)
+    calls = replay_frame(cap, opaque, params, cfg)
     g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
     table = textures.build_texture_table(mips)
     sc = scene_mod.from_numpy(scene_mod.upload(g, d, mats, masks, texture_table=table), dev)
-    tex = textures.to_device(table, dev)
-    cfg = frame.FrameConfig(width=width, height=height, post_passes=2, **presets.small_capacities())
-    params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
-    state = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, dev)
-    cap = {}
-    for _ in range(2):
-        _, fb, state, _ = frame.render_frame(sc, state, params, sp, cfg, textures=tex, capture=cap)
-    calls = replay_frame(cap, sc, params, cfg)
-    live = sum(int(st["count"]) for st in cap["setup_out"])
-    covered = int((fb.vis != INVALID_FRAG).sum())
-    expect(live > 0 and covered > 100, f"the parity scene rendered {live} triangles over {covered} px")
+    cfg, params, sp, cap, fb = two_frames(sc, 2, textures.to_device(table, dev))
+    calls += replay_frame(cap, sc, params, cfg)
+    row0 = height // TILE_H // 4  # tile rows 4-11 of 16 at 256x128
+    band = replay_band(band_args(cap["setup_out"][-1], cfg, row0, 2 * row0), row0)
+    expect(all(c["written"] > 0 for c in band), "the band replay covers no pixel")
+    calls += band
     bl = replay_bloom(cap["g0"], width, height)
     bvh = shadow.build_scene_rt(g, d, mats, mips)[0].to(dev)
     rays = occluded = 0
@@ -254,6 +320,6 @@ def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128)
         tr = replay_trace(bvh, tcap["trace"])
         rays += tr["occluded"].numel()
         occluded += int(tr["occluded"].sum())
-    return dict(setup_records_live=live, covered_px=covered,
+    return dict(setup_records_live=held["live"], covered_px=held["covered"],
                 calls={k: sum(c["name"] == k for c in calls) for k in dict.fromkeys(c["name"] for c in calls)},
                 bloom_levels=len(bl["calls"]), rays=rays, occluded_rays=occluded)

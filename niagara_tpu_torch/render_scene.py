@@ -11,8 +11,9 @@ It renders on the card (`--device cuda`, the default) and stops with an
 error when there is none; `--device cpu` renders through the kernels'
 plain torch versions.  With no scene it renders `--draws` draws of the
 procedural torus (cooker.cook_procedural), which stands in for the
-reference's default kitten.obj.  A glTF scene brings its own draws,
-materials, textures, camera and sun; its draw classes are the loader's,
+reference's default kitten.obj.  .obj scenes are cooked through the
+scene cache in .cache/ (cooker.cook_or_load).  A glTF scene brings its
+own draws, materials, textures, camera and sun; its draw classes are the loader's,
 and as in the reference the frame renders the alpha class when the scene
 has opacity masks (post_passes 2) and the opaque class otherwise, so
 transmission draws are not drawn (FrameConfig(post_passes=3) draws them).
@@ -49,6 +50,8 @@ from .utils.profiling import FrameProfiler
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PACKAGE_DIR)
 DEFAULT_OUT = os.path.join(ROOT, ".cache", "frames")
+# the scene cache of .obj scenes (tools/render_scene.py:93)
+SCENE_CACHE = os.path.join(ROOT, ".cache")
 
 # the reference viewer's budgets (tools/render_scene.py:122-131)
 VIEWER_CAPACITIES = dict(cmd_capacity=1 << 16, cluster_capacity=1 << 16, pair_capacity=1 << 20,
@@ -110,7 +113,7 @@ def load(args) -> types.SimpleNamespace:
                                     fov_y=sd.camera_fov_y)
         sun = sd.sun_direction
     else:
-        geometry = cooker.cook_obj_meshes(args.scene) if args.scene else cooker.cook_procedural()
+        geometry = cooker.cook_or_load(args.scene, cache_dir=SCENE_CACHE) if args.scene else cooker.cook_procedural()
         draws = cooker.synthesize_draws(geometry.meshes.count, draw_count=args.draws)
         materials = None
     np_scene = scene_mod.upload(geometry, draws, materials, masks, texture_table=table)

@@ -21,9 +21,12 @@
   single-pass frame), with the stage names of each path, and each
   column summing to the frame's own ms within 5%.
 * The gate: kernel_parity_check refuses a CPU device; with the kernel
-  wrappers pointed at their plain versions the small scene's replays
+  wrappers pointed at their plain versions the small scenes' replays
+  (the opaque and the alpha frame, a band of the alpha frame's late pass)
   pass on the CPU, and a wrapper that flips one bit of one word of its
-  output (setup, raster, shade, a bloom level, the trace) is caught.
+  output is caught in the replay of its instance: setup (the alpha and
+  the opaque frame's), raster (over the grid, and over the band with and
+  without the alpha test), shade, a bloom level, the trace.
 * `python -m niagara_tpu_torch.bench --device cpu` (300 draws, one frame)
   prints one JSON line with bench.py's keys and no "kitten"; with the RT,
   glass, sharded and stage knobs on it adds their keys; without
@@ -308,15 +311,17 @@ def test_kernel_parity_check_refuses_the_cpu(small):
 def test_gate_replays_pass_with_plain_wrappers(small, plain_kernels):
     out = parity.replay_small_scene(small.g, "cpu")
     assert out["setup_records_live"] > 0 and out["covered_px"] > 100
-    assert out["calls"] == {"setup_alpha": 2, "raster": 1, "raster_alpha": 1, "shade": 1}
+    assert out["calls"] == {"setup": 2, "raster": 3, "shade": 2, "setup_alpha": 2, "raster_alpha": 1,
+                            "raster_window": 1, "raster_alpha_window": 1}
     assert out["bloom_levels"] == 2 * bloom.bloom_levels(W, H) - 1
     assert 0 < out["occluded_rays"] < out["rays"] == 2 * (W // 2) * (H // 2) // 2
 
 
 @pytest.fixture(scope="module")
 def captured(small):
-    """One captured small alpha frame (its second, from a cold state), and
-    the rays of its ray-traced shadow pass with the alpha test."""
+    """One captured small alpha frame (its second, from a cold state), the
+    rays of its ray-traced shadow pass with the alpha test, and one
+    captured small opaque frame (post_passes=1, the same way)."""
     cfg = frame.FrameConfig(width=W, height=H, post_passes=2, **CAPS)
     params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
     state = frame.init_state(small.scene.num_draws, small.scene.meshlet_visibility_count, "cpu")
@@ -327,30 +332,59 @@ def captured(small):
     tcap = {}
     shadow.shadow_pass(fb.depth, bvh, sun_direction=sp.sun_direction, inverse_view_projection=sp.inverse_view_projection,
                        width=W, height=H, quality=1, capture=tcap)
-    return types.SimpleNamespace(cap=cap, params=params, cfg=cfg, bvh=bvh, trace=tcap["trace"])
+    opaque = scene.from_numpy(scene.upload(small.g, cooker.small_scene_draws(small.g.meshes.count)), "cpu")
+    ocfg = frame.FrameConfig(width=W, height=H, **CAPS)
+    ostate, ocap = frame.init_state(opaque.num_draws, opaque.meshlet_visibility_count, "cpu"), {}
+    for _ in range(2):
+        ostate = frame.render_frame(opaque, ostate, params, sp, ocfg, capture=ocap)[2]
+    return types.SimpleNamespace(cap=cap, params=params, cfg=cfg, bvh=bvh, trace=tcap["trace"], opaque=opaque,
+                                 ocap=ocap, ocfg=ocfg)
+
+
+def _flip_raster(band=False, alpha=None):
+    """raster_plain with one bit of its outputs flipped on the calls given
+    a band start (`band`) and, unless None, that alpha_test."""
+    def fake(*a, **kw):
+        out = raster_tile.raster_plain(*a, **kw)
+        hit = (kw.get("band_row0") is not None) == band and alpha in (None, kw.get("alpha_test", False))
+        return tuple(_flip(x) for x in out) if hit else out
+    return fake
 
 
 FLIPS = {
     "setup": (setup, "setup_cuda", lambda *a: dict(setup.setup_plain(*a), rec=_flip(setup.setup_plain(*a)["rec"]))),
-    "raster": (raster_tile, "raster_cuda", lambda *a, **kw: tuple(_flip(x) for x in raster_tile.raster_plain(*a, **kw))),
+    "raster": (raster_tile, "raster_cuda", _flip_raster()),
     "shade": (raster_tile, "shade_cuda", lambda *a: _flip(raster_tile.shade_plain(*a))),
     "bloom": (bloom, "up2_add_cuda", lambda s, m: _flip(bloom.up2_add_plain(s, m))),
     "trace": (shadow, "trace_cuda", lambda *a, **kw: (_flip(shadow.trace_plain(*a, **kw)[0]),
                                                       shadow.trace_plain(*a, **kw)[1])),
 }
+# the kernel each flip is caught in, and the replay that catches it: the
+# alpha frame's, the opaque frame's (setup_kernel<false>) or the band's
+# (each raster instance with band_row0)
+CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "setup early"),
+          "raster": ("raster", "raster early"), "raster_window": ("raster_window", "raster_window band"),
+          "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
+          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "trace": ("trace", "trace_alpha")}
+FLIPS.update(raster_window=(raster_tile, "raster_cuda", _flip_raster(band=True)),
+             raster_alpha_window=(raster_tile, "raster_cuda", _flip_raster(band=True, alpha=True)))
 
 
-@pytest.mark.parametrize("which", list(FLIPS))
+@pytest.mark.parametrize("which", list(CAUGHT))
 def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
-    mod, name, fake = FLIPS[which]
+    flip, kernel = CAUGHT[which]
+    mod, name, fake = FLIPS[flip]
     plain_kernels.setattr(mod, name, fake)
-    kernel = {"setup": "setup_alpha", "raster": "raster", "shade": "shade", "bloom": "bloom_up",
-              "trace": "trace_alpha"}[which]
-    with pytest.raises(parity.ParityError, match=kernel):
+    with pytest.raises(parity.ParityError, match=f"^{kernel}"):
         if which == "bloom":
             parity.replay_bloom(captured.cap["g0"], W, H)
         elif which == "trace":
             parity.replay_trace(captured.bvh, captured.trace)
+        elif which == "setup opaque":
+            parity.replay_frame(captured.ocap, captured.opaque, captured.params, captured.ocfg)
+        elif which.endswith("window"):
+            row0 = H // 8 // 4
+            parity.replay_band(parity.band_args(captured.cap["setup_out"][-1], captured.cfg, row0, 2 * row0), row0)
         else:
             parity.replay_frame(captured.cap, small.scene, captured.params, captured.cfg)
 

@@ -68,7 +68,7 @@ def test_port_imports_with_jax_package_blocked():
     assert proc.returncode == 0, proc.stderr
     assert len(modules) > 20
     assert {"niagara_tpu_torch.parallel.__init__", "niagara_tpu_torch.parallel.mesh", "niagara_tpu_torch.bench",
-            "niagara_tpu_torch.render.parity"} <= set(modules)
+            "niagara_tpu_torch.render.parity", "niagara_tpu_torch.entry"} <= set(modules)
 
 
 def test_port_cooker_matches_reference(tmp_path):
