@@ -5,8 +5,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 `python3 chip_smoke.py --baseline DIR` also builds the kernels of another
 tree of the repository (DIR holds its niagara_tpu_torch/, e.g. an earlier
 commit unpacked by `git archive` into the ignored .cache/) and times its
-setup, raster and shade wrappers against this tree's on the same captured
-inputs, in turns (baseline, this tree, this tree, baseline).
+setup, raster, shade and trace wrappers against this tree's on the same
+captured inputs, in turns (baseline, this tree, this tree, baseline).
 
 Phases, each reported on its own line:
   device        -- needs CUDA (exits nonzero without it); prints the card's
@@ -187,18 +187,26 @@ Phases, each reported on its own line:
                    1M-draw frame: build_scene_rt and refit_tlas on the host
                    (timed, as bench.py prints "TLAS build" and "refit"), the
                    BVH uploaded; shadow_pass(scale=2, chunked=True: a
-                   2,048-step budget) on the steady frame's depth; then five
+                   2,048-step budget) on the steady frame's depth, its rays
+                   replayed against trace_plain (the card's grid and one
+                   block); then five
                    chained frames of render_frame(bvh=...) from the steady
                    state with the counters at zero: loss-free, shadow and
                    light in the covered pixels, one trace launch a frame;
   rt kernels    -- the last of those frames' rays replayed: the kernel
-                   (csrc/trace.cu, trace_any_hit<false>) against
-                   trace_plain on the card, every flag and step count equal;
-                   rays, steps per ray, the share out of budget, kernel and
-                   plain times, the bound from trace_plain's counters; then
-                   trace_any_hit<true> on the rays of "rt alpha": the alpha
-                   frame's 1M draws with their masks, three frames with the
-                   quality-1 any-hit (one trace_alpha launch a frame);
+                   (csrc/trace.cu, trace_any_hit<false>, the rays in the
+                   frame's Morton order) against trace_plain on the card,
+                   on the card's grid and on one block (its warps refill
+                   many times), every flag and step count equal; rays,
+                   steps per ray, the share out of budget, the walk's SIMD
+                   efficiency in 32-ray groups (id order and ray order),
+                   kernel and plain times (with --baseline, the baseline's
+                   kernel in turns on the same rays), the bound from
+                   trace_plain's counters; then trace_any_hit<true> on the
+                   rays of "rt alpha": the alpha frame's 1M draws with
+                   their masks, its chunked pass with the alpha test, three
+                   frames with the quality-1 any-hit (one trace_alpha
+                   launch a frame);
   profile       -- torch.profiler over five more frames of each path (and
                    of the sun path's update + splice alone): device ops and
                    kernel launches per frame, device busy time and idle
@@ -360,18 +368,19 @@ def ptxas_resources(log: str) -> list[str]:
     return out
 
 
-def load_baseline(path: str):
-    """The _build, ops.setup and ops.raster_tile modules of another tree's
-    niagara_tpu_torch, imported under another package name (its relative
-    imports stay inside it; its kernels build into its own build/)."""
+def load_baseline(path: str, name: str = "baseline_niagara_tpu_torch"):
+    """The _build, ops.setup, ops.raster_tile and ops.shadow modules of
+    another tree's niagara_tpu_torch, imported as package `name` (its
+    relative imports stay inside it; its kernels build into its own
+    build/)."""
     pkg = os.path.join(os.path.abspath(path), "niagara_tpu_torch")
-    name = "baseline_niagara_tpu_torch"
     spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
                                                   submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return tuple(importlib.import_module(f"{name}.{m}") for m in ("_build", "ops.setup", "ops.raster_tile"))
+    return tuple(importlib.import_module(f"{name}.{m}") for m in ("_build", "ops.setup", "ops.raster_tile",
+                                                                  "ops.shadow"))
 
 
 def in_turns(new_fn, old_fn, reps: int) -> tuple[float, float | None]:
@@ -579,8 +588,8 @@ def run_all(base, city_job, dev, smi) -> dict:
     per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
     rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
                 shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
-    kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow), path="rt",
-                            launches=rt["launches"]["trace"])
+    kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow, base),
+                            path="rt", launches=rt["launches"]["trace"])
     profile_frames("rt profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], rt["cfg"],
                                                                  bvh=rt["bvh"])[2], rt["state"])
     del ds, opaque, rt
@@ -630,8 +639,9 @@ def run_all(base, city_job, dev, smi) -> dict:
     per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, trace_alpha=1,
                               **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
     rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
-                 _build, smi, per_frame, 3, mats=mats, mips=mips)
-    kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow),
+                 _build, smi, per_frame, 3, mats=mats, mips=mips, depth=alpha["fb"].depth)
+    kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow,
+                                                base),
                                   path="rt alpha", launches=rta["launches"]["trace_alpha"])
     del alpha, rta
     torch.cuda.empty_cache()
@@ -1965,11 +1975,15 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
     it; then n_frames chained frames of render_frame(bvh=...) from
     `state`, the counters at zero: each loss-free and finite, shadow and
     light in the covered pixels, the launches `per_frame` times n_frames.
+    The chunked pass traces with the alpha test when `mats` is given, and
+    its rays are replayed against trace_plain (render/parity.py).
     Returns the device BVH, the last frame's trace capture, the state,
     the launches and the frame times."""
     import dataclasses
 
     import torch
+
+    from niagara_tpu_torch.render import parity
 
     t0 = time.perf_counter()
     host_bvh, static = shadow.build_scene_rt(geometry, draws, mats, mips)
@@ -1991,17 +2005,18 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
         ev[0].record()
         term = shadow.shadow_pass(depth, bvh, sun_direction=sp.sun_direction,
                                   inverse_view_projection=sp.inverse_view_projection, width=cfg.width,
-                                  height=cfg.height, scale=2, chunked=True, capture=cap)
+                                  height=cfg.height, scale=2, chunked=True, capture=cap,
+                                  quality=1 if mats is not None else 0)
         ev[1].record()
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        occ, steps = shadow.trace_cuda(bvh, cap["trace"]["origin"], cap["trace"]["direction"],
-                                       max_steps=shadow.CHUNKED_STEPS)
-        check(torch.equal(occ, cap["trace"]["occluded"]), "the chunked pass's flags are not reproducible")
+        name = "trace_alpha" if mats is not None else "trace"
+        check(bool(torch.isfinite(term).all()) and launches.get(name) == 1, "the chunked pass failed")
+        rep = parity.replay_trace(bvh, cap["trace"])  # the card's grid and one block against trace_plain
         log(f"{tag} pass", f"shadow_pass(scale=2, chunked=True) on the steady frame's depth: "
             f"{ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events, first call), launches {launches}, "
-            f"{steps_line(steps, occ, shadow.CHUNKED_STEPS)}, mean term {float(term.mean()):.4f}")
-        check(bool(torch.isfinite(term).all()) and launches.get("trace") == 1, "the chunked pass failed")
+            f"{steps_line(rep['steps'], rep['occluded'], shadow.CHUNKED_STEPS, cap['trace']['order'])}, mean term "
+            f"{float(term.mean()):.4f}; {name} on the card's grid and on one block equal trace_plain bit for bit")
 
     cfg = dataclasses.replace(cfg, shadows=True, shadow_quality=1 if mats is not None else 0)
     zero_launches()
@@ -2031,21 +2046,40 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
     return dict(bvh=bvh, trace=cap["trace"], state=state, launches=launches, cfg=cfg, frame_ms=frame_ms)
 
 
-def steps_line(steps, occ, budget: int) -> str:
-    """Rays, occluded share and steps per ray of one trace (steps -1:
-    the budget ran out)."""
+def simd_efficiency(walked, order=None) -> float:
+    """The walk's SIMD efficiency in groups of 32 rays (a warp's): mean
+    steps over the mean, across the groups, of each group's maximum, the
+    rays grouped in id order or, given `order`, in its order (the last
+    group padded with zero-step rays)."""
+    import torch
+
+    w = (walked if order is None else walked[order.long()]).float()
+    pad = (-w.numel()) % 32
+    groups = torch.cat([w, w.new_zeros(pad)]).view(-1, 32)
+    return float(w.mean() / groups.max(dim=1).values.mean())
+
+
+def steps_line(steps, occ, budget: int, order=None) -> str:
+    """Rays, occluded share, steps per ray of one trace (steps -1: the
+    budget ran out) and the walk's SIMD efficiency over 32-ray groups, in
+    id order and, given the kernel's `order`, in that order."""
     cut = steps < 0
     walked = steps.clamp(min=0) + cut.to(steps.dtype) * budget
+    eff = f"SIMD efficiency id order {simd_efficiency(walked):.4f}" + (
+        f", ray order {simd_efficiency(walked, order):.4f}" if order is not None else "")
     return (f"{steps.numel()} rays, occluded {float(occ.float().mean()):.4f}, steps per ray mean "
             f"{float(walked.float().mean()):.2f} max {int(walked.max())}, out of budget ({budget}) "
-            f"{int(cut.sum())} ({float(cut.float().mean()):.2e})")
+            f"{int(cut.sum())} ({float(cut.float().mean()):.2e}), {eff}")
 
 
-def compare_trace(tag, label, bvh, trace, shadow) -> dict:
+def compare_trace(tag, label, bvh, trace, shadow, base=None) -> dict:
     """A frame's trace replayed through the package's replay
-    (render/parity.py replay_trace): the kernel (trace_any_hit<alpha_test>)
-    against the frame's flags and trace_plain on the same card tensors,
-    every flag and step count equal; the kernel's time behind the spin kernel, the plain loop's
+    (render/parity.py replay_trace): the kernel (trace_any_hit<alpha_test>,
+    the rays in the frame's order) against the frame's flags and
+    trace_plain on the same card tensors, on the card's grid and on one
+    block, every flag and step count equal; the kernel's time behind the
+    spin kernel (with `base`, in turns with the baseline tree's trace_cuda
+    on the same rays, which takes them in id order), the plain loop's
     time, and the bound.  Bytes: each distinct node (32 B), triangle
     (48 B), instance (48 B) and mask + uv row (64 B) the walk touches read
     once, each ray's origin and direction read and its flag and step count
@@ -2054,7 +2088,7 @@ def compare_trace(tag, label, bvh, trace, shadow) -> dict:
     test, instance entry and mask test, counted per ray by trace_plain."""
     from niagara_tpu_torch.render import parity
 
-    o, d, alpha, budget = trace["origin"], trace["direction"], trace["alpha_test"], trace["max_steps"]
+    o, d, alpha, budget, order = (trace[k] for k in ("origin", "direction", "alpha_test", "max_steps", "order"))
     rep = parity.replay_trace(bvh, trace, counters=True)
     name, p_occ, p_steps, counts, counted_s = rep["name"], rep["occluded"], rep["steps"], rep["counts"], rep["plain_s"]
     n = o.shape[0]
@@ -2066,20 +2100,26 @@ def compare_trace(tag, label, bvh, trace, shadow) -> dict:
     ops = sum(per_ray[k] * TRACE_OPS[k] for k in TRACE_OPS)
     bms, by = bound(nbytes, ops)
     fetched_ms = bound(fetched, ops)[0]
-    ms = cuda_ms(lambda: shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha), 10)
+    old = (lambda: base[3].trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha)) if base else None
+    ms, base_ms = in_turns(lambda: shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha, order=order),
+                           old, 10)
     plain_ms = cuda_ms(lambda: shadow.trace_plain(bvh, o, d, max_steps=budget, alpha_test=alpha), 1)
-    log(tag, f"{label} {name}: {steps_line(p_steps, p_occ, budget)}; kernel flags and step counts equal trace_plain's "
-        f"(max_abs_err 0.0); per ray {', '.join(f'{k} {per_ray[k] / n:.2f}' for k in TRACE_OPS)}; distinct rows "
-        f"{distinct}")
-    log(tag, f"{label} {name}: kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms (with counters {counted_s * 1e3:.1f} ms), "
-        f"bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB read once, {ops / 1e9:.3f} Gop), share {bms / ms:.1%}; "
-        f"the rows each ray fetches: {fetched / 1e6:.1f} MB, {fetched_ms:.4f} ms, share {fetched_ms / ms:.1%}")
+    walked = p_steps.clamp(min=0) + (p_steps < 0).to(p_steps.dtype) * budget
+    log(tag, f"{label} {name}: {steps_line(p_steps, p_occ, budget, order)}; kernel flags and step counts equal "
+        f"trace_plain's on the card's grid and on one block (max_abs_err 0.0); per ray "
+        f"{', '.join(f'{k} {per_ray[k] / n:.2f}' for k in TRACE_OPS)}; distinct rows {distinct}")
+    log(tag, f"{label} {name}: kernel {ms:.4f} ms"
+        + (f" vs the baseline's {base_ms:.4f} ms in turns ({base_ms / ms:.2f}x)" if base else "")
+        + f" vs plain {plain_ms:.1f} ms (with counters {counted_s * 1e3:.1f} ms), bound {bms:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB read once, {ops / 1e9:.3f} Gop), share {bms / ms:.1%}; the rows each ray fetches: "
+        f"{fetched / 1e6:.1f} MB, {fetched_ms:.4f} ms, share {fetched_ms / ms:.1%}")
     return dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/trace.cu",
                 replaces="niagara_tpu/ops/shadow.py:320", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, fetched_bound_ms=fetched_ms, rays=n,
-                steps_mean=float(p_steps.clamp(min=0).double().mean() + (p_steps < 0).double().mean() * budget),
-                steps_max=int(p_steps.max()) if not bool((p_steps < 0).any()) else budget,
-                out_of_budget=float((p_steps < 0).double().mean()))
+                steps_mean=float(walked.double().mean()), steps_max=int(walked.max()),
+                out_of_budget=float((p_steps < 0).double().mean()), simd_id=simd_efficiency(walked),
+                simd_order=simd_efficiency(walked, order) if order is not None else None,
+                **({"baseline_ms": base_ms} if base else {}))
 
 
 def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:

@@ -106,9 +106,9 @@ _SIGNATURES = {
     "bloom_up_launch": [P, I, I, I, P, P, I, I, UpWeights, P],
     # src, c, h, w, out, oh, ow, weights, stream
     "bloom_x2_launch": [P, I, I, I, P, I, I, X2Weights, P],
-    # nodes, n_nodes, tlas_base, tris, n_tris, inst, n_inst, uv, alpha, n_alpha, origin, direction, n_rays,
-    # t_min, t_max, max_steps, alpha_test, occluded, steps, stream
-    "trace_launch": [P, I, I, P, I, P, I, P, P, I, P, P, I, F, F, I, I, P, P, P],
+    # nodes, n_nodes, tlas_base, tris, n_tris, inst, n_inst, uv, alpha, n_alpha, origin, direction, order
+    # (null: id order), n_rays, t_min, t_max, max_steps, alpha_test, blocks, counter, occluded, steps, stream
+    "trace_launch": [P, I, I, P, I, P, I, P, P, I, P, P, P, I, F, F, I, I, I, P, P, P, P],
 }
 
 

@@ -6,9 +6,10 @@ object-space BLAS per mesh at its shadow LOD, built once by the C++
 cooker (cooker/native/bvh.cpp), and a TLAS over the instances' world
 boxes, rebuilt or refitted on the host when draws move.  `build_scene_rt`
 / `refit_tlas` make the same structure with the port's copy of the
-builders; `trace_any_hit` walks it, one thread per ray in csrc/trace.cu's
-`trace_any_hit<kAlpha>` for CUDA tensors and `trace_plain`, a torch loop
-that mirrors the reference's while_loop body op for op, for CPU tensors.
+builders; `trace_any_hit` walks it, in csrc/trace.cu's
+`trace_any_hit<kAlpha>` for CUDA tensors (persistent warps taking the rays
+in `ray_order`'s Morton order) and `trace_plain`, a torch loop that
+mirrors the reference's while_loop body op for op, for CPU tensors.
 `shadow_pass` is the frame's pipeline: world positions at 1/scale
 resolution, a jittered sun direction, a checkerboard of traced pixels,
 `checkerboard_fill`, `shadow_blur` and a nearest upsample.
@@ -24,6 +25,7 @@ whose hit lies within a few ulp of a triangle edge or a slab face
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -447,10 +449,37 @@ def trace_plain(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_max
     return (hit, steps, count_of) if counters else (hit, steps)
 
 
+def _check_order(order, origin) -> None:
+    """Raise ValueError unless order is an int32 [N] tensor on the rays'
+    device holding each ray id once: the kernel walks ray order[s] for
+    each slot s, so a repeated or missing id would leave a ray unwalked.
+    The permutation is checked once per tensor and version (a sort and one
+    read back), so shadow_pass's cached ray_order costs it once."""
+    n = origin.shape[0] if origin.dim() else 0
+    if (not isinstance(order, torch.Tensor) or order.dtype != torch.int32 or tuple(order.shape) != (n,)
+            or order.device != origin.device):
+        what = (f"{order.dtype} {tuple(order.shape)} on {order.device}" if isinstance(order, torch.Tensor)
+                else type(order).__name__)
+        raise ValueError(f"trace_any_hit: order must be int32 [{n}] on {origin.device}, got {what}")
+    if getattr(order, "_checked_permutation", None) != order._version:
+        if not torch.equal(torch.sort(order).values, torch.arange(n, dtype=torch.int32, device=order.device)):
+            raise ValueError(f"trace_any_hit: order must hold each ray id in [0, {n}) once")
+        order._checked_permutation = order._version
+
+
+# trace.cu's ray counter, 4 bytes a (device, stream), zeroed by each launch
+_COUNTERS: dict[tuple, torch.Tensor] = {}
+
+
 def trace_cuda(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_max: float = 1e30,
-               max_steps: int = 1024, alpha_test: bool = False):
-    """csrc/trace.cu's trace_any_hit<alpha_test>, one thread per ray:
-    trace_plain's contract, (occluded bool [N], steps int32 [N])."""
+               max_steps: int = 1024, alpha_test: bool = False, order=None, blocks: int = 0):
+    """csrc/trace.cu's trace_any_hit<alpha_test>: trace_plain's contract,
+    (occluded bool [N], steps int32 [N]).  Persistent warps take the rays
+    in `order` (int32 [N], a permutation of the rays, else ValueError;
+    None: id order) from a counter, in `blocks` blocks (0: as many as fill
+    the card once); no schedule changes a result."""
+    if order is not None:
+        _check_order(order, origin)
     _build.require_cuda(origin, "trace_any_hit")
     for what, t in (("origin", origin), ("direction", direction)):
         _build.expect(t, torch.float32, (3,), f"trace_any_hit {what}")
@@ -474,10 +503,15 @@ def trace_cuda(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_max:
     tris = torch.cat([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, torch.zeros_like(bvh.tri_v0)], dim=1).contiguous()
     uv, alpha = bvh.tri_uv.contiguous(), bvh.tri_alpha.contiguous()
     origin, direction = origin.contiguous(), direction.contiguous()
+    stream = _build.stream_ptr(origin)
+    counter = _COUNTERS.get((origin.device, stream))
+    if counter is None:
+        counter = _COUNTERS[(origin.device, stream)] = torch.empty(1, dtype=torch.int32, device=origin.device)
     rc = _build.lib().trace_launch(
         nodes.data_ptr(), nodes.shape[0], bvh.tlas_base, tris.data_ptr(), tris.shape[0], inst.data_ptr(),
-        inst.shape[0], uv.data_ptr(), alpha.data_ptr(), alpha.shape[0], origin.data_ptr(), direction.data_ptr(), n,
-        t_min, t_max, max_steps, int(alpha_test), occluded.data_ptr(), steps.data_ptr(), _build.stream_ptr(origin))
+        inst.shape[0], uv.data_ptr(), alpha.data_ptr(), alpha.shape[0], origin.data_ptr(), direction.data_ptr(),
+        None if order is None else order.contiguous().data_ptr(), n, t_min, t_max, max_steps, int(alpha_test),
+        blocks, counter.data_ptr(), occluded.data_ptr(), steps.data_ptr(), stream)
     name = "trace_alpha" if alpha_test else "trace"
     _build.LAUNCHES[name] += 1
     _build.check(rc, name)
@@ -485,15 +519,19 @@ def trace_cuda(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_max:
 
 
 def trace_any_hit(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_max: float = 1e30,
-                  max_steps: int = 1024, alpha_test: bool = False):
+                  max_steps: int = 1024, alpha_test: bool = False, order=None):
     """Two-level any-hit occlusion of rays origin/direction [N, 3] (world
     space) against `bvh` on their device, within max_steps node visits a
     ray: occluded bool [N].  alpha_test is the reference's quality-1 path:
     hits on masked triangles count only on an opaque cell.  CUDA tensors
-    run trace.cu's kernel (trace_cuda), CPU tensors trace_plain; both also
-    give each ray's step count."""
-    trace = trace_plain if origin.device.type == "cpu" else trace_cuda
-    return trace(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps, alpha_test=alpha_test)[0]
+    run trace.cu's kernel (trace_cuda, which takes the rays in `order`, a
+    permutation such as ray_order's), CPU tensors trace_plain (whose
+    result no order changes); both also give each ray's step count."""
+    if origin.device.type == "cpu":
+        return trace_plain(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps,
+                           alpha_test=alpha_test)[0]
+    return trace_cuda(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps, alpha_test=alpha_test,
+                      order=order)[0]
 
 
 # ------------------------------------------------------------ filters and the pass
@@ -557,6 +595,36 @@ def world_positions(depth, inverse_view_projection, width: int, height: int, sca
     return d_small, torch.stack(wposh[:3], dim=-1) / wdiv[..., None]
 
 
+def ray_pixels(sh: int, sw: int, checkerboard: bool, parity: int, device):
+    """(rows, cols) of shadow_pass's traced pixels on its [sh, sw] grid,
+    ray i at (rows.flatten()[i], cols.flatten()[i]): with `checkerboard`
+    the pixels of parity `parity` in each row, [sh, sw // 2]; else all."""
+    r = torch.arange(sh, device=device)[:, None]
+    if checkerboard:
+        cols = torch.arange(sw // 2, device=device)[None, :] * 2 + (r + parity) % 2
+    else:
+        cols = torch.arange(sw, device=device)[None, :].expand(sh, sw)
+    return r.expand_as(cols), cols
+
+
+def _spread_bits(v):
+    """The low 16 bits of v (int64) spread to the even bits."""
+    for shift, mask in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        v = (v | (v << shift)) & mask
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def ray_order(sh: int, sw: int, checkerboard: bool, parity: int, device):
+    """The order in which csrc/trace.cu takes shadow_pass's rays: their
+    pixels' Morton (Z-order) codes sorted, so the 32 rays a warp takes at
+    once lie in one 8x8 pixel block of the [sh, sw] grid, not along one
+    row.  int32 [rays], a permutation; built once per argument tuple."""
+    rows, cols = ray_pixels(sh, sw, checkerboard, parity, device)
+    code = _spread_bits(cols.reshape(-1).long()) | (_spread_bits(rows.reshape(-1).long()) << 1)
+    return torch.argsort(code, stable=True).to(torch.int32)
+
+
 def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection, width: int, height: int,
                 scale: int = 2, checkerboard: bool = True, blur: bool = True, sun_jitter: float = 1e-2,
                 znear: float = 0.1, parity: int = 0, quality: int = 0, chunked: bool = False,
@@ -571,7 +639,7 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     with the alpha test.  chunked=True walks bench.py's budget
     (CHUNKED_STEPS) instead of 1024 steps.  `capture` receives the traced
     rays and their result ("trace": origin, direction, alpha_test,
-    max_steps, occluded).  `stages` (a utils.profiling.StageTimer) gets
+    max_steps, occluded, and the kernel's ray order, None on the CPU).  `stages` (a utils.profiling.StageTimer) gets
     the boundaries "rt rays+trace" and "rt fill+blur"."""
     dev = depth.device
     sw, sh = width // scale, height // scale
@@ -590,17 +658,17 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     norm = torch.sqrt((dx * dx + dy * dy) + dz * dz)
     dirs = torch.stack([dx, dy, dz], dim=-1) / norm[..., None]
 
+    rows, cols = ray_pixels(sh, sw, checkerboard, parity, dev)
     if checkerboard:
-        cols = torch.arange(sw // 2, device=dev)[None, :] * 2 + (torch.arange(sh, device=dev)[:, None] + parity) % 2
-        rows = torch.arange(sh, device=dev)[:, None].expand_as(cols)
         origin, direction = wpos[rows, cols].reshape(-1, 3), dirs[rows, cols].reshape(-1, 3)
     else:
         origin, direction = wpos.reshape(-1, 3), dirs.reshape(-1, 3)
     max_steps = CHUNKED_STEPS if chunked else 1024
-    occ = trace_any_hit(bvh, origin, direction, max_steps=max_steps, alpha_test=quality >= 1)
+    order = ray_order(sh, sw, checkerboard, parity, dev) if dev.type == "cuda" else None
+    occ = trace_any_hit(bvh, origin, direction, max_steps=max_steps, alpha_test=quality >= 1, order=order)
     if capture is not None:
         capture["trace"] = dict(origin=origin, direction=direction, alpha_test=quality >= 1, max_steps=max_steps,
-                                occluded=occ)
+                                occluded=occ, order=order)
     stage_marker(stages)("rt rays+trace")
     if checkerboard:
         occluded = torch.zeros((sh, sw), dtype=torch.bool, device=dev)

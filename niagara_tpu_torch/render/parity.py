@@ -229,7 +229,9 @@ def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
 
 def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
     """A shadow pass's rays (shadow_pass's capture["trace"]) replayed: the
-    kernel (trace_any_hit<alpha_test>) against the pass's own flags and
+    kernel (trace_any_hit<alpha_test>, taking the rays in the pass's
+    order) against the pass's own flags, and on the whole card's grid and
+    on one block (whose four warps then refill their lanes many times)
     against trace_plain on the same tensors, every flag and step count
     equal.  Returns the kernel's name, the plain loop's flags, steps, its
     seconds and, with `counters`, its per-ray counters
@@ -238,7 +240,8 @@ def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
 
     o, d, alpha, budget = trace["origin"], trace["direction"], trace["alpha_test"], trace["max_steps"]
     name = "trace_alpha" if alpha else "trace"
-    k_occ, k_steps = shadow.trace_cuda(bvh, o, d, max_steps=budget, alpha_test=alpha)
+    run = dict(max_steps=budget, alpha_test=alpha, order=trace.get("order"))
+    k_occ, k_steps = shadow.trace_cuda(bvh, o, d, **run)
     same_bits(k_occ, trace["occluded"], f"{name}: the replay against the frame's flags")
     t0 = time.perf_counter()
     p_occ, p_steps, *counts = shadow.trace_plain(bvh, o, d, max_steps=budget, alpha_test=alpha, counters=counters)
@@ -246,6 +249,8 @@ def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
         torch.cuda.synchronize(o.device)
     plain_s = time.perf_counter() - t0
     same_bits((k_occ, k_steps), (p_occ, p_steps), f"{name} against trace_plain")
+    same_bits(shadow.trace_cuda(bvh, o, d, blocks=1, **run), (p_occ, p_steps),
+              f"{name} on one block against trace_plain")
     return dict(name=name, occluded=p_occ, steps=p_steps, budget=budget, plain_s=plain_s,
                 counts=counts[0] if counts else None)
 

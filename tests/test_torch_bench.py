@@ -289,6 +289,16 @@ def _flip(t):
     return t
 
 
+def _plain_trace(flip_blocks=None):
+    """trace_plain in trace_cuda's place, the kernel's scheduling (order,
+    blocks) dropped; the flags flipped on the calls with `blocks` equal to
+    flip_blocks (None: none)."""
+    def fake(*a, order=None, blocks=0, **kw):
+        occ, steps = shadow.trace_plain(*a, **kw)[:2]
+        return (_flip(occ) if blocks == flip_blocks else occ), steps
+    return fake
+
+
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """Every kernel wrapper the gate replays pointed at its plain version
@@ -299,7 +309,7 @@ def plain_kernels(monkeypatch):
     monkeypatch.setattr(bloom, "down2_cuda", bloom._down2)
     monkeypatch.setattr(bloom, "up2_add_cuda", bloom.up2_add_plain)
     monkeypatch.setattr(bloom, "bilinear_x2_cuda", lambda s, oh, ow: bloom._bilinear_x2(s, oh, ow).permute(1, 2, 0))
-    monkeypatch.setattr(shadow, "trace_cuda", lambda *a, **kw: shadow.trace_plain(*a, **kw)[:2])
+    monkeypatch.setattr(shadow, "trace_cuda", _plain_trace())
     return monkeypatch
 
 
@@ -356,8 +366,8 @@ FLIPS = {
     "raster": (raster_tile, "raster_cuda", _flip_raster()),
     "shade": (raster_tile, "shade_cuda", lambda *a: _flip(raster_tile.shade_plain(*a))),
     "bloom": (bloom, "up2_add_cuda", lambda s, m: _flip(bloom.up2_add_plain(s, m))),
-    "trace": (shadow, "trace_cuda", lambda *a, **kw: (_flip(shadow.trace_plain(*a, **kw)[0]),
-                                                      shadow.trace_plain(*a, **kw)[1])),
+    "trace": (shadow, "trace_cuda", _plain_trace(flip_blocks=0)),
+    "trace_one_block": (shadow, "trace_cuda", _plain_trace(flip_blocks=1)),
 }
 # the kernel each flip is caught in, and the replay that catches it: the
 # alpha frame's, the opaque frame's (setup_kernel<false>) or the band's
@@ -365,7 +375,8 @@ FLIPS = {
 CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "setup early"),
           "raster": ("raster", "raster early"), "raster_window": ("raster_window", "raster_window band"),
           "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
-          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "trace": ("trace", "trace_alpha")}
+          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "trace": ("trace", "trace_alpha"),
+          "trace_one_block": ("trace_one_block", "trace_alpha on one block")}
 FLIPS.update(raster_window=(raster_tile, "raster_cuda", _flip_raster(band=True)),
              raster_alpha_window=(raster_tile, "raster_cuda", _flip_raster(band=True, alpha=True)))
 
@@ -378,7 +389,7 @@ def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
     with pytest.raises(parity.ParityError, match=f"^{kernel}"):
         if which == "bloom":
             parity.replay_bloom(captured.cap["g0"], W, H)
-        elif which == "trace":
+        elif which.startswith("trace"):
             parity.replay_trace(captured.bvh, captured.trace)
         elif which == "setup opaque":
             parity.replay_frame(captured.ocap, captured.opaque, captured.params, captured.ocfg)

@@ -572,7 +572,8 @@ def test_trace_kernel_matches_plain(tmp_path, case):
     """trace_any_hit<false/true> (trace_cuda) against trace_plain on the
     same card tensors: every flag and every ray's step count (-1 where the
     budget ran out) equal; one launch counted; trace_any_hit takes the
-    kernel."""
+    kernel; the same results with the rays taken in a seeded random order,
+    on the card's grid and on one block (its warps refill many times)."""
     _need_cuda()
     bvh, o, d = _trace_inputs(tmp_path, case)
     alpha, steps = case == "alpha", 24 if case == "budget" else 1024
@@ -583,6 +584,10 @@ def test_trace_kernel_matches_plain(tmp_path, case):
     assert torch.equal(shadow.trace_any_hit(bvh, o, d, max_steps=steps, alpha_test=alpha), occ)
     p_occ, p_n = shadow.trace_plain(bvh, o, d, max_steps=steps, alpha_test=alpha)
     assert torch.equal(occ, p_occ) and torch.equal(n, p_n)
+    perm = torch.from_numpy(np.random.default_rng(22).permutation(len(o)).astype(np.int32)).to(DEV)
+    for kw in (dict(order=perm), dict(order=perm, blocks=1)):
+        got = shadow.trace_cuda(bvh, o, d, max_steps=steps, alpha_test=alpha, **kw)
+        assert torch.equal(got[0], p_occ) and torch.equal(got[1], p_n), kw
     assert 0 < int(occ.sum()) < len(occ)
     if case == "budget":
         assert int((n == -1).sum()) > 100

@@ -326,6 +326,106 @@ def test_trace_matches_reference(geometry, case):
         assert (opaque & ~occ).sum() > 5 and not (occ & ~opaque).any(), "the masks let some rays through"
 
 
+# ------------------------------------------------------------ the kernel's ray order
+
+# (sh, sw) grids of shadow_pass at scale 2: the tests' 256x128, 1920x1080,
+# an odd viewer size (width 483, height 271) and a single row
+ORDER_GRIDS = [(64, 128), (540, 960), (135, 241), (1, 37)]
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("checkerboard", [True, False], ids=["checkerboard", "full"])
+@pytest.mark.parametrize("grid", ORDER_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_ray_order_is_a_permutation(grid, checkerboard, parity):
+    """ray_order is a permutation of shadow_pass's rays (int32, on the
+    asked device, built once per key), in Morton order of their pixels:
+    where the grid holds whole 8x8 blocks, the first 32 slots of a
+    checkerboard (64 of a full grid) are the rays of the first block."""
+    sh, sw = grid
+    order = shadow.ray_order(sh, sw, checkerboard, parity, "cpu")
+    rows, cols = shadow.ray_pixels(sh, sw, checkerboard, parity, "cpu")
+    n = rows.numel()
+    assert order.dtype == torch.int32 and tuple(order.shape) == (n,) and order.device.type == "cpu"
+    assert torch.equal(torch.sort(order).values, torch.arange(n, dtype=torch.int32))
+    assert shadow.ray_order(sh, sw, checkerboard, parity, "cpu") is order
+    if sh >= 8 and sw >= 8:
+        k = 32 if checkerboard else 64
+        first = order[:k].long()
+        assert int(rows.reshape(-1)[first].max()) < 8 and int(cols.reshape(-1)[first].max()) < 8
+
+
+ORDER_CASES = ("torus", "budget_24", "alpha")
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_trace_plain_is_order_free(geometry, case):
+    """trace_plain on the rays in ray_order's order (a 32x64 checkerboard
+    holds the cases' 1,024 rays), its results put back at the ray ids,
+    equals trace_plain on the rays in id order, flag for flag and step for
+    step: the kernel's order changes no result.  budget_24 has rays out of
+    budget (-1), alpha the mask test."""
+    got_bvh, _, _, o, d, steps, alpha = _trace_case(geometry, case)
+    order = shadow.ray_order(32, 64, True, 1, "cpu").long()
+    assert order.numel() == len(o)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    occ, n_steps = shadow.trace_plain(got_bvh, o, d, max_steps=steps, alpha_test=alpha)
+    p_occ, p_steps = shadow.trace_plain(got_bvh, o[order], d[order], max_steps=steps, alpha_test=alpha)
+    back_occ, back_steps = torch.empty_like(p_occ), torch.empty_like(p_steps)
+    back_occ[order], back_steps[order] = p_occ, p_steps
+    assert torch.equal(back_occ, occ) and torch.equal(back_steps, n_steps)
+    assert 0 < int(occ.sum()) < len(occ)
+    if case == "budget_24":
+        assert int((n_steps == -1).sum()) > 20
+
+
+NOT_INT32 = "order must be int32"
+NOT_A_PERMUTATION = "order must hold each ray id"
+MALFORMED_ORDERS = {
+    "int64": (lambda n: torch.arange(n, dtype=torch.int64), NOT_INT32),
+    "float": (lambda n: torch.arange(n, dtype=torch.float32), NOT_INT32),
+    "short": (lambda n: torch.arange(n - 1, dtype=torch.int32), NOT_INT32),
+    "2d": (lambda n: torch.arange(n, dtype=torch.int32).reshape(n // 2, 2), NOT_INT32),
+    "list": (lambda n: list(range(n)), NOT_INT32),
+    "repeated_id": (lambda n: torch.arange(n, dtype=torch.int32).index_fill_(0, torch.tensor([n - 1]), 0),
+                    NOT_A_PERMUTATION),
+    "out_of_range": (lambda n: torch.arange(1, n + 1, dtype=torch.int32), NOT_A_PERMUTATION),
+    "negative": (lambda n: torch.arange(-1, n - 1, dtype=torch.int32), NOT_A_PERMUTATION),
+}
+
+
+def _quad_rays(n: int = 8):
+    nodes, tris = _quad()
+    return shadow.single_blas(nodes, tris), torch.zeros((n, 3)), torch.tensor([[0.0, 0.0, 1.0]]).repeat(n, 1)
+
+
+@pytest.mark.parametrize("kind", list(MALFORMED_ORDERS))
+def test_trace_cuda_rejects_malformed_order(kind):
+    """trace_cuda raises ValueError on an order that is not int32 [N] on the
+    rays' device or does not hold each ray id once (the kernel would leave
+    a ray unwalked), before it reaches a device check or the kernel (here
+    the rays lie on the CPU, where a well-formed order gets the device
+    error)."""
+    bvh, o, d = _quad_rays()
+    make, message = MALFORMED_ORDERS[kind]
+    with pytest.raises(ValueError, match=message):
+        shadow.trace_cuda(bvh, o, d, order=make(8))
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        shadow.trace_cuda(bvh, o, d, order=torch.arange(8, dtype=torch.int32))
+
+
+def test_trace_cuda_rechecks_an_edited_order():
+    """The permutation check runs once per order tensor and version: an
+    order that passed and was then written in place is checked again."""
+    bvh, o, d = _quad_rays()
+    order = torch.arange(8, dtype=torch.int32).flip(0)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+            shadow.trace_cuda(bvh, o, d, order=order)
+    order[3] = order[4]
+    with pytest.raises(ValueError, match=NOT_A_PERMUTATION):
+        shadow.trace_cuda(bvh, o, d, order=order)
+
+
 # ------------------------------------------------------------ the pass and the frame
 
 
