@@ -5,8 +5,9 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 `python3 chip_smoke.py --baseline DIR` also builds the kernels of another
 tree of the repository (DIR holds its niagara_tpu_torch/, e.g. an earlier
 commit unpacked by `git archive` into the ignored .cache/) and times its
-setup, raster, shade and trace wrappers against this tree's on the same
-captured inputs, in turns (baseline, this tree, this tree, baseline).
+setup, raster, shade, trace and bloom wrappers against this tree's on the
+same captured inputs, in turns (baseline, this tree, this tree, baseline);
+for bloom also its chain a level a launch against this tree's chain.
 
 Phases, each reported on its own line:
   device        -- needs CUDA (exits nonzero without it); prints the card's
@@ -83,11 +84,17 @@ Phases, each reported on its own line:
   bloom kernels -- the bloom chain (csrc/bloom.cu) on the alpha path's
                    steady frame-4 g0 at 1920x1080 with its emissive channel
                    replaced by seeded nonzero values (the scenes' own is 0):
-                   each level's kernel against its plain version, bit for
-                   bit, then compute_bloom and sample_bloom_fullres against
-                   the plain chain; times, bounds, the library yardsticks
-                   (conv2d, conv_transpose2d, interpolate), and the launches
-                   and device time of one bloom a frame under the profiler;
+                   bloom_down and bloom_up at every level, the tail
+                   (bloom_tail from mip 4: every level it writes) and
+                   bloom_x2 against their plain versions, bit for bit, then
+                   compute_bloom and sample_bloom_fullres against the plain
+                   chain; each launch's time alone, the frame's launches'
+                   times, bounds, the library yardsticks (conv2d,
+                   conv_transpose2d, interpolate), the down and up chain
+                   (20 chains on the device, 100 back to back, the host's
+                   enqueue) beside the chain a level a launch, and the
+                   launches (10 a frame) and device time of one bloom a
+                   frame under the profiler;
   mesh small    -- the sharded frame (parallel/mesh.py): the small alpha
                    scene with a 256x256 sun map of the unsharded scene, 4
                    shards in this process, two frames on the card against
@@ -272,9 +279,10 @@ SUN_MAP, SUN_BATCH = 2048, 1 << 14
 # 16 taps and the accumulate (up), 4 taps (x2), a multiply and an add each
 BLOOM_OPS = {"bloom_down": 72, "bloom_up": 33, "bloom_x2": 8}
 # the reference's bloom is no Pallas kernel: each kernel replaces a plain
-# XLA stencil function
+# XLA stencil function; the tail replaces compute_bloom's loop over the
+# small levels (`_down2` and `_up2` + the accumulate there)
 BLOOM_REPLACES = {"bloom_down": "niagara_tpu/ops/bloom.py:95", "bloom_up": "niagara_tpu/ops/bloom.py:119",
-                  "bloom_x2": "niagara_tpu/ops/bloom.py:180"}
+                  "bloom_tail": "niagara_tpu/ops/bloom.py:160", "bloom_x2": "niagara_tpu/ops/bloom.py:180"}
 # the procedural city: bench.py's (defaults of synth_city.generate_city)
 # and tests/test_city.py's reduced one, under the ignored .cache/
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -283,8 +291,6 @@ CITY_SMALL = dict(blocks=4, facade_seg=8, tex_size=64)
 # the reference's city counts (BENCH_r05, its frame 7; counts only)
 CITY_REFERENCE = ("15,876 draws, 289,025 meshlets, 312 materials, 312 textures, 5,292 alpha draws; tri demand "
                   "1,857/131,072, pairs 77,292/262,144, class demand [31, 69, 149, 1013, 445, 150], giant cap 256")
-# bloom's launches over frames 2-4: 7 levels down, 7 up, 1 expansion a frame
-BLOOM_LAUNCHES = {"bloom_down": 21, "bloom_up": 21, "bloom_x2": 3}
 # trace.cu's f32 operations per unit of a ray's walk, counted from the
 # source: a node step (slab test: 6 sub, 6 mul, 6 min/max, 6 min/max for
 # tnear/tfar, a compare), a triangle test (two crosses, four dots, a
@@ -330,6 +336,20 @@ def launch_counts(**counts) -> dict:
     return {k: counts.get(k, 0) for k in _build.LAUNCHES}
 
 
+def bloom_launches(frames: int, size: tuple[int, int] = FULL) -> dict:
+    """bloom.cu's launches over `frames` frames at size (width, height): a
+    bloom_down and a bloom_up for each level above the tail's start, one
+    bloom_tail (when two levels or more are left) and one bloom_x2 a frame.
+    At 1920x1080 that is 4 + 4 + 1 + 1 (the tail from mip 4); at 256x128
+    1 + 1 + 1 + 1 (the tail from mip 1)."""
+    from niagara_tpu_torch.ops import bloom
+
+    levels = bloom.bloom_levels(*size)
+    start = min(bloom.tail_start(levels, (size[1] + 1) // 2, (size[0] + 1) // 2), levels - 1)
+    return {"bloom_down": start * frames, "bloom_up": start * frames,
+            "bloom_tail": frames if levels - start >= 2 else 0, "bloom_x2": frames}
+
+
 def zero_launches() -> None:
     """Every kernel's launch counter (_build.LAUNCHES) to 0."""
     from niagara_tpu_torch import _build
@@ -353,7 +373,8 @@ def ptxas_resources(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("setup_kernel", "setup_scatter", "setup_count", "setup_scan", "raster_tile",
-                                     "shade_px", "bloom_down", "bloom_up", "bloom_x2", "trace_any_hit")
+                                     "shade_px", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2",
+                                     "trace_any_hit")
                          if k in mangled), mangled)
             name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
             spill = ""
@@ -369,10 +390,10 @@ def ptxas_resources(log: str) -> list[str]:
 
 
 def load_baseline(path: str, name: str = "baseline_niagara_tpu_torch"):
-    """The _build, ops.setup, ops.raster_tile and ops.shadow modules of
-    another tree's niagara_tpu_torch, imported as package `name` (its
-    relative imports stay inside it; its kernels build into its own
-    build/)."""
+    """The _build, ops.setup, ops.raster_tile, ops.shadow and ops.bloom
+    modules of another tree's niagara_tpu_torch, imported as package
+    `name` (its relative imports stay inside it; its kernels build into
+    its own build/)."""
     pkg = os.path.join(os.path.abspath(path), "niagara_tpu_torch")
     spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
                                                   submodule_search_locations=[pkg])
@@ -380,7 +401,7 @@ def load_baseline(path: str, name: str = "baseline_niagara_tpu_torch"):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{name}.{m}") for m in ("_build", "ops.setup", "ops.raster_tile",
-                                                                  "ops.shadow"))
+                                                                  "ops.shadow", "ops.bloom"))
 
 
 def in_turns(new_fn, old_fn, reps: int) -> tuple[float, float | None]:
@@ -410,6 +431,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds to enqueue fn() (its wrappers' Python and
+    launches), reps times while a spin kernel keeps the device busy."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e3 / reps
+
+
+def chain_times(new_fn, old_fn) -> dict:
+    """A chain of launches (new_fn, and old_fn in turns when given): device
+    ms of 20 chains behind the spin kernel (the launch queue holds them
+    all, so the events see the device's time), ms of 100 chains back to
+    back (past the launch queue's depth the host's enqueue paces them) and
+    the host's ms to enqueue one chain."""
+    dev, dev_old = in_turns(new_fn, old_fn, 20)
+    b2b, b2b_old = in_turns(new_fn, old_fn, 100)
+    return dict(ms=dev, ms_100=b2b, host_ms=host_ms(new_fn, 20),
+                **({"old_ms": dev_old, "old_ms_100": b2b_old, "old_host_ms": host_ms(old_fn, 20)} if old_fn else {}))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -490,7 +539,7 @@ def main() -> int:
     run_bench(smi)
 
     order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade", "bloom_down",
-             "bloom_up", "bloom_x2", "trace", "trace_alpha")
+             "bloom_up", "bloom_tail", "bloom_x2", "trace", "trace_alpha")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -543,7 +592,7 @@ def run_bench(smi) -> None:
           f"the bench's gate did not replay every kernel instance: {held}")
     check(out["loss_free"] is True, "the bench dropped work")
     check(math.isfinite(out["value"]) and out["value"] > 0, "the bench's value is not a positive time")
-    check({"setup_alpha", "raster", "raster_alpha", "shade", "bloom_down", "bloom_up", "bloom_x2"}
+    check({"setup_alpha", "raster", "raster_alpha", "shade", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2"}
           <= set(out["launches"]), f"the bench's frames did not run the path's kernels: {out['launches']}")
     check(set(stages) == {"static", "animated"} and all(v["reconcile"] <= 0.05 for v in stages.values()),
           "the bench's stage columns do not sum to the frame's ms")
@@ -571,7 +620,7 @@ def run_all(base, city_job, dev, smi) -> dict:
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup=6, raster=6, shade=3, **BLOOM_LAUNCHES)
+    expected = launch_counts(setup=6, raster=6, shade=3, **bloom_launches(3))
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
@@ -585,7 +634,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     small_reference("rt small", dev, scene.upload(geometry, small_draws), None,
                     frame.FrameConfig(width=256, height=128, shadows=True, **presets.small_capacities()),
                     scene, camera, frame, bvh=shadow.build_scene_rt(geometry, small_draws)[0])
-    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
+    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **bloom_launches(1))
     rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
                 shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
     kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow, base),
@@ -620,7 +669,7 @@ def run_all(base, city_job, dev, smi) -> dict:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3))
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
@@ -631,13 +680,13 @@ def run_all(base, city_job, dev, smi) -> dict:
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
         elif r["name"] == "shade":  # one row per kernel: shade's alpha-path numbers ride in its opaque row
             kernels["shade"]["alpha_path"] = side_row(r, alpha["launches"]["shade"])
-    for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom):
+    for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom, base):
         kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
     # the alpha frame ray-traced with the quality-1 any-hit through the masks
     per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, trace_alpha=1,
-                              **{k: v // 3 for k, v in BLOOM_LAUNCHES.items()})
+                              **bloom_launches(1))
     rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
                  _build, smi, per_frame, 3, mats=mats, mips=mips, depth=alpha["fb"].depth)
     kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow,
@@ -705,7 +754,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     caps = presets.scene_capacities(sd.geometry, sd.draws)
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **caps)
     log("city scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3))
     cam = camera.Camera(position=sd.camera_position, orientation=sd.camera_orientation)
     path = run_path("city ", ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=cam,
                     sun_direction=sd.sun_direction)
@@ -878,7 +927,7 @@ def run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi) -> None:
     per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1)
     runs = {}
     for k in (n, 1):
-        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **BLOOM_LAUNCHES)
+        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **bloom_launches(3))
         runs[k] = mesh_frames(f"mesh {k}-shard", shards[k], mesh.init_sharded_state(shards[k]), cfg, params, sp, tex,
                               sun, expected, smi)
     four, one = runs[n], runs[1]
@@ -1109,7 +1158,7 @@ def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
     caps = presets.headline_capacities(ds.num_draws)
     cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=3, **caps)
     log("glass scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **BLOOM_LAUNCHES)
+    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **bloom_launches(3))
     path = run_path("glass ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     s, steady = path["stats"], path["steady"]
     for name, st, (ts, *_), (tc, cap) in zip(steady["passes"], steady["setup_out"], steady["raster"],
@@ -1180,7 +1229,7 @@ def run_configs(kernels, dev, smi) -> None:
         depth[config] = r["fb"].depth
         n = 1 if config < 2 else 2
         expected = launch_counts(setup=2 * n, raster=2 * n, shade=2,
-                                 **{k: 2 * v // 3 for k, v in BLOOM_LAUNCHES.items()})
+                                 **bloom_launches(2))
         log("configs", f"config {config}: {CONFIG_DRAWS} draws, frame ms (CUDA events) {r['frame_ms']}, "
             f"{secs:.1f} s with the PNGs | {frame_line(s)} covered_px {int((r['fb'].vis != INVALID).sum())} | passes "
             f"{capture['passes']} | launches {launches} (expected {expected}) on {smi}")
@@ -1255,7 +1304,6 @@ def run_obj_cache(dev, smi) -> None:
 
     from niagara_tpu_torch import _build, cooker, render_scene
     from niagara_tpu_torch.cooker import cook
-    from niagara_tpu_torch.ops import bloom
 
     os.makedirs(os.path.join(ROOT, ".cache"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="obj_cache_", dir=os.path.join(ROOT, ".cache"))
@@ -1290,9 +1338,7 @@ def run_obj_cache(dev, smi) -> None:
             f"({t5 - t4:.3f} s) | on the host of {smi}")
 
         frames, (W, H) = 4, FULL
-        levels = bloom.bloom_levels(W, H)
-        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, bloom_down=(levels - 1) * frames,
-                                 bloom_up=(levels - 1) * frames, bloom_x2=frames)
+        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, **bloom_launches(frames, (W, H)))
         for label in ("cold", "warm"):
             zero_launches()
             t0 = time.perf_counter()
@@ -1328,7 +1374,6 @@ def run_entry(dev, smi) -> None:
     import torch
 
     from niagara_tpu_torch import _build, entry
-    from niagara_tpu_torch.ops import bloom
     from niagara_tpu_torch.render import frame
 
     kept = {}
@@ -1358,9 +1403,7 @@ def run_entry(dev, smi) -> None:
     finally:
         frame.render_frame = render_frame
     cfg = frame.FrameConfig(**entry.ENTRY_CONFIG)
-    levels = bloom.bloom_levels(cfg.width, cfg.height)
-    expected = launch_counts(setup=4, raster=4, shade=2, bloom_down=2 * (levels - 1), bloom_up=2 * (levels - 1),
-                             bloom_x2=2)
+    expected = launch_counts(setup=4, raster=4, shade=2, **bloom_launches(2, (cfg.width, cfg.height)))
     (ci, cfb, cst, cs), (gi, gfb, gst, gs) = kept["cpu"][-1], kept[str(dev)][-1]
     cs, gs = cs.to_dict(), gs.to_dict()
     image_err = float((ci - gi.cpu()).abs().max())
@@ -1394,9 +1437,8 @@ def run_entry(dev, smi) -> None:
         check(printed.getvalue() == line, f"dryrun_multichip({n}) printed {printed.getvalue()!r}")
         runs[str(where)] = (out, secs, printed.getvalue().strip())
     (c, _, _), (g, secs, line) = runs["cpu"], runs[str(dev)]
-    levels = bloom.bloom_levels(*(entry.DRYRUN_CONFIG[k] for k in ("width", "height")))
-    expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n, bloom_down=levels - 1,
-                             bloom_up=levels - 1, bloom_x2=1)
+    expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n,
+                             **bloom_launches(1, tuple(entry.DRYRUN_CONFIG[k] for k in ("width", "height"))))
     cs, gs = c["stats"].to_dict(), g["stats"].to_dict()
     image_err = float((c["image"] - g["image"].cpu()).abs().max())
     log("entry", f"{line} ({secs:.2f} s on the card, the cook a cache hit) | {frame_line(gs)} | against the CPU: "
@@ -1884,7 +1926,7 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
     expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3,
-                             **BLOOM_LAUNCHES)
+                             **bloom_launches(3))
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")
     check(launches == expected, "kernel launch counts")
@@ -2122,26 +2164,45 @@ def compare_trace(tag, label, bvh, trace, shadow, base=None) -> dict:
                 **({"baseline_ms": base_ms} if base else {}))
 
 
-def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:
+def level_chain(bm, mip0, levels: int):
+    """The bloom chain from mips[0] a level a launch: bloom_down for each
+    level, then bloom_up back up (bm: an ops.bloom module)."""
+    mips = [mip0]
+    for _ in range(1, levels):
+        mips.append(bm.down2_cuda(mips[-1]))
+    acc = mips[-1]
+    for mip in mips[-2::-1]:
+        acc = bm.up2_add_cuda(acc, mip)
+    return acc
+
+
+def compare_bloom(tag, g0, width: int, height: int, bloom, base=None) -> list[dict]:
     """bloom.cu's kernels on a frame's g0 with its emissive channel replaced
     by seeded nonzero values, through the package's replay
-    (render/parity.py replay_bloom): each level against its plain version
-    on the same input, bit for bit, then the whole chain and the
-    expansion; here the per-frame times (all levels), bounds and the
-    library yardsticks; one bloom a frame under the profiler."""
+    (render/parity.py replay_bloom): the frame's calls (bloom_down, the
+    tail with its every level, bloom_up, bloom_x2) against their plain
+    versions on the same inputs, bit for bit, then the whole chain and the
+    expansion; here each launch's time alone (with `base`, the baseline
+    tree's kernels on the same input in turns), the per-frame times,
+    bounds and the library yardsticks; the down and up chain as the frame
+    runs it beside the chain a level a launch (the baseline tree's, in
+    turns, or this tree's); one bloom a frame under the profiler."""
     import torch
     import torch.nn.functional as F
 
     from niagara_tpu_torch.render import parity
 
     rep = parity.replay_bloom(g0, width, height)
-    g0, mips, levels, full = rep["g0"], rep["mips"], rep["levels"], rep["full"]
-    rows = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, library_err=0.0) for k in BLOOM_OPS}
+    g0, mips, levels, start, full = rep["g0"], rep["mips"], rep["levels"], rep["start"], rep["full"]
+    rows = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, library_err=0.0, base_ms=0.0)
+            for k in BLOOM_REPLACES}
+    base_bloom = base[4] if base else None
 
     # the library yardsticks compute the same functions in full f32 (no
     # TF32) from the same level, the edge padding (F.pad replicate) timed
     # with them: conv2d (6x6, stride 2) down, conv_transpose2d (8x8, stride
-    # 2) plus the accumulate up, bilinear interpolate x2
+    # 2) plus the accumulate up, bilinear interpolate x2; the tail's is
+    # those of the levels it replaces, one after another
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -2152,40 +2213,92 @@ def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:
                 for i in range(4):
                     wup[7 - py - 2 * j, 7 - px - 2 * i] = float(k[py + j, px + i])
         wup = wup.to(torch.float32).to(g0.device).expand(3, 1, 8, 8).contiguous()
+
+        def lib_down(src):
+            _, h, w = src.shape
+            oh, ow = (h + 1) // 2, (w + 1) // 2
+            return F.conv2d(F.pad(src[None], (2, 2 * ow - w + 4, 2, 2 * oh - h + 4), mode="replicate"), wdown,
+                            stride=2, groups=3)[0, :, :oh, :ow]
+
+        def lib_up(src, mip):
+            _, oh, ow = mip.shape
+            return mip + F.conv_transpose2d(F.pad(src[None], (2, 2, 2, 2), mode="replicate"), wup, stride=2,
+                                            groups=3)[0, :, 7:7 + oh, 7:7 + ow]
+
+        def lib_tail(src, n):
+            ms = [src]
+            for _ in range(1, n):
+                ms.append(lib_down(ms[-1]))
+            acc = ms[-1]
+            for mip in ms[-2::-1]:
+                acc = lib_up(acc, mip)
+            return acc
+
         for c in rep["calls"]:
             name, src, p = c["name"], c["src"], c["out"]
-            _, h, w = src.shape
             if name == "bloom_down":
-                oh, ow = (h + 1) // 2, (w + 1) // 2
-                pad = (2, 2 * ow - w + 4, 2, 2 * oh - h + 4)
-                library = lambda: F.conv2d(F.pad(src[None], pad, mode="replicate"), wdown, stride=2,  # noqa: E731
-                                           groups=3)[..., :oh, :ow]
-                nbytes, outputs = src.numel() * 4 + 3 * oh * ow * 4, 3 * oh * ow
+                library, old = (lambda s=src: lib_down(s)), (lambda s=src: base_bloom.down2_cuda(s))
+                nbytes, ops = src.numel() * 4 + p.numel() * 4, BLOOM_OPS[name] * p.numel()
             elif name == "bloom_up":
                 mip = c["mip"]
-                _, oh, ow = mip.shape
-                library = lambda: mip + F.conv_transpose2d(F.pad(src[None], (2, 2, 2, 2), mode="replicate"),  # noqa
-                                                           wup, stride=2, groups=3)[0, :, 7:7 + oh, 7:7 + ow]
-                nbytes, outputs = src.numel() * 4 + 2 * mip.numel() * 4, mip.numel()
+                library, old = (lambda s=src, m=mip: lib_up(s, m)), (lambda s=src, m=mip: base_bloom.up2_add_cuda(s, m))
+                nbytes, ops = src.numel() * 4 + 2 * mip.numel() * 4, BLOOM_OPS[name] * mip.numel()
+            elif name == "bloom_tail":
+                n = c["n"]
+                library, old = (lambda s=src, n=n: lib_tail(s, n)), (lambda s=src, n=n: level_chain(base_bloom, s, n))
+                p = p[-1]
+                nbytes = src.numel() * 4 + sum(x.numel() * 4 for x in c["out"])
+                ops = sum(BLOOM_OPS["bloom_down" if i < n - 1 else "bloom_up"] * x.numel()
+                          for i, x in enumerate(c["out"]))
             else:
-                library = lambda: F.interpolate(src[None], size=(height, width), mode="bilinear",  # noqa: E731
-                                                align_corners=False)[0].permute(1, 2, 0)
-                nbytes, outputs = src.numel() * 4 + 3 * height * width * 4, 3 * height * width
+                library = lambda s=src: F.interpolate(s[None], size=(height, width), mode="bilinear",  # noqa: E731
+                                                      align_corners=False)[0].permute(1, 2, 0)
+                old = lambda s=src: base_bloom.bilinear_x2_cuda(s, height, width)  # noqa: E731
+                nbytes, ops = src.numel() * 4 + 3 * height * width * 4, BLOOM_OPS[name] * 3 * height * width
+            c["ms"], c["base_ms"] = in_turns(c["kernel"], old if base else None, 20)
             r = rows[name]
-            r["library_err"] = max(r["library_err"],
-                                   float((library().reshape(p.shape) - p).abs().max() / p.abs().max()))
-            r["ms"] += cuda_ms(c["kernel"], 20)
+            err = float((library().reshape(p.shape) - p).abs().max() / p.abs().max())
+            r["library_err"] = max(r["library_err"], err)
+            r["ms"] += c["ms"]
+            r["base_ms"] += c["base_ms"] or 0.0
             r["plain_ms"] += cuda_ms(c["plain"], 5)
             r["library_ms"] += cuda_ms(library, 20)
             r["bytes"] += nbytes
-            r["ops"] += BLOOM_OPS[name] * outputs
+            r["ops"] += ops
     finally:
         torch.backends.cudnn.allow_tf32 = prev
 
     log(tag, f"g0 {tuple(g0.shape)} with seeded emissive, {levels} levels "
-        f"{[tuple(m.shape[1:]) for m in mips]}: every level of bloom_down/bloom_up/bloom_x2 equals its plain version "
-        f"bit for bit, compute_bloom and sample_bloom_fullres equal the plain chain bit for bit (max_abs_err 0); "
-        f"bloom mean {float(full.mean()):.4g}")
+        f"{[tuple(m.shape[1:]) for m in mips]}, the tail from mip {start}: bloom_down, every level the tail writes, "
+        f"bloom_up and bloom_x2 equal their plain versions bit for bit, compute_bloom and sample_bloom_fullres equal "
+        f"the plain chain bit for bit (max_abs_err 0); bloom mean {float(full.mean()):.4g}")
+    for c in rep["calls"]:
+        log(tag, f"{c['name']} on {tuple(c['src'].shape)}{' (' + str(c['n']) + ' levels)' if 'n' in c else ''}: "
+            f"{c['ms']:.4f} ms a launch, alone (20 back to back)"
+            + (f", the baseline's {c['base_ms']:.4f} ms in turns" if base else ""))
+    # the chain's bound counts every level's bytes and operations as a level
+    # a launch would (the tail reads its intermediate levels on chip)
+    chain_bytes = chain_ops = 0.0
+    for big, small in zip(mips, mips[1:]):
+        chain_bytes += (big.numel() + small.numel()) * 4 + (small.numel() + 2 * big.numel()) * 4
+        chain_ops += BLOOM_OPS["bloom_down"] * small.numel() + BLOOM_OPS["bloom_up"] * big.numel()
+
+    # the down and up chain as the frame runs it, from mips[0] (the extract
+    # excluded): the large levels, the tail; beside it the chain a level a
+    # launch (the baseline tree's kernels in turns, or this tree's
+    # large-level kernels at every level)
+    chain = lambda: bloom.cuda_chain(mips[0], levels)  # noqa: E731
+    check(torch.equal(chain().view(torch.int32), rep["half"].view(torch.int32)),
+          "cuda_chain differs from compute_bloom")
+    times = chain_times(chain, lambda: level_chain(base_bloom or bloom, mips[0], levels))
+    cbms, cby = bound(chain_bytes, chain_ops)
+    launches = bloom_launches(1, (width, height))
+    log(tag, f"the down and up chain ({launches['bloom_down']} + {launches['bloom_tail']} + {launches['bloom_up']} "
+        f"launches): {times['ms']:.4f} ms on the device (20 chains behind the spin), {times['ms_100']:.4f} ms a chain "
+        f"100 back to back, {times['host_ms']:.4f} ms of host enqueue; a level a launch "
+        f"({'the baseline' if base else 'this tree'}'s bloom_down/bloom_up, {2 * (levels - 1)} launches, in turns): "
+        f"{times['old_ms']:.4f} ms, {times['old_ms_100']:.4f} ms, {times['old_host_ms']:.4f} ms host; bound "
+        f"{cbms:.5f} ms by {cby} ({chain_bytes / 1e6:.2f} MB, every level's bytes), share {cbms / times['ms']:.1%}")
 
     # one bloom (chain + expansion) under the profiler: its launches, device
     # time, and that only bloom.cu's kernels and the extract's ops run.  The
@@ -2196,7 +2309,7 @@ def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    expected = 5 * (2 * levels - 1)
+    expected = 5 * sum(launches.values())
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2211,18 +2324,25 @@ def compare_bloom(tag, g0, width: int, height: int, bloom) -> list[dict]:
             f"the plain extract")
         if len(ours) == expected:
             break
-    check(len(ours) == expected, "the bloom chain did not run on bloom.cu's kernels")
+    check(len(ours) == expected, f"the bloom chain did not run on bloom.cu's {expected // 5} launches a frame")
 
     out = []
     for name, r in rows.items():
         check(r["library_err"] < 1e-5, f"{name}: the library yardstick computes another function")
         bms, by = bound(r["bytes"], r["ops"])
-        log(tag, f"{name}: kernel {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms vs library {r['library_ms']:.4f} ms "
-            f"(relative difference {r['library_err']:.2g}) per frame, bound {bms:.5f} ms by {by} "
-            f"({r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} Mop), share {bms / r['ms']:.1%}, max_abs_err 0.0")
-        out.append(dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/bloom.cu",
-                        replaces=BLOOM_REPLACES[name], max_abs_err=0.0, ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
+        log(tag, f"{name}: kernel {r['ms']:.4f} ms"
+            + (f" (the baseline's {r['base_ms']:.4f} ms in turns)" if base else "")
+            + f" vs plain {r['plain_ms']:.4f} ms vs library {r['library_ms']:.4f} ms "
+            f"(relative difference {r['library_err']:.2g}) per frame, {launches[name]} launches, bound {bms:.5f} ms by "
+            f"{by} ({r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} Mop), share {bms / max(r['ms'], 1e-9):.1%}, "
+            f"max_abs_err 0.0")
+        row = dict(name=name, route="cuda", source="niagara_tpu_torch/csrc/bloom.cu", replaces=BLOOM_REPLACES[name],
+                   max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by,
+                   library_ms=r["library_ms"], **({"baseline_ms": r["base_ms"]} if base else {}))
+        if name == "bloom_tail":
+            row["chain"] = dict(times, level_a_launch=("baseline" if base else "this tree"), bound_ms=cbms,
+                                start=start, launches=launches)
+        out.append(row)
     return out
 
 

@@ -40,11 +40,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # are the two static instances of setup.cu's and raster.cu's kernels;
 # raster_window / raster_alpha_window count the same instances launched on a
 # band of tile rows (the row_window variant, the sun map's band update);
-# bloom_down / bloom_up / bloom_x2 are bloom.cu's three filters; trace /
+# bloom_down / bloom_up are bloom.cu's large-level filters, bloom_tail its
+# small levels' down and up in one launch, bloom_x2 the expansion; trace /
 # trace_alpha the two instances of trace.cu's BVH walk
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
-            "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_x2": 0, "trace": 0,
-            "trace_alpha": 0}
+            "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_tail": 0, "bloom_x2": 0,
+            "trace": 0, "trace_alpha": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
@@ -89,6 +90,14 @@ class X2Weights(ctypes.Structure):
     _fields_ = [("w", ctypes.c_float * 16)]
 
 
+class TailLevels(ctypes.Structure):
+    """Mirror of `struct TailLevels` in csrc/bloom.cu: the tail's levels
+    (sizes, offsets of their outputs; `soff` is filled by the launch)."""
+
+    _fields_ = [("n", ctypes.c_int), ("h", ctypes.c_int * 8), ("w", ctypes.c_int * 8),
+                ("down_off", ctypes.c_int * 8), ("up_off", ctypes.c_int * 8), ("soff", ctypes.c_int * 8)]
+
+
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
     # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
@@ -104,6 +113,8 @@ _SIGNATURES = {
     "bloom_down_launch": [P, I, I, I, P, DownWeights, P],
     # src, c, h, w, mip, out, oh, ow, weights, stream
     "bloom_up_launch": [P, I, I, I, P, P, I, I, UpWeights, P],
+    # src, out, levels, down weights, up weights, stream
+    "bloom_tail_launch": [P, P, TailLevels, DownWeights, UpWeights, P],
     # src, c, h, w, out, oh, ow, weights, stream
     "bloom_x2_launch": [P, I, I, I, P, I, I, X2Weights, P],
     # nodes, n_nodes, tlas_base, tris, n_tris, inst, n_inst, uv, alpha, n_alpha, origin, direction, order

@@ -11,14 +11,22 @@ channel-first [3, h, w].
 
 The plain versions keep the reference's tap order (`out = out + w * tap`
 from 0, rows then columns, zero weights skipped).  On a CUDA tensor the
-three filters run csrc/bloom.cu's kernels (`bloom_down`, `bloom_up` fused
-with the accumulate, `bloom_x2` writing the [H, W, 3] image), which
-repeat those ops in that order and equal them bit for bit; the emissive
-extract stays plain torch on both devices (its pow and exp2 come from
-each device's math library).
+chain runs csrc/bloom.cu's kernels, which repeat those ops in that order
+and equal them bit for bit: `bloom_down` and `bloom_up` (fused with the
+accumulate) on the large levels, a level a launch; from `tail_start`, the
+first level whose mips down to the last fit in TAIL_SPLIT_BYTES of shared
+memory, `bloom_tail` runs every remaining down and up in one launch (its
+plain twin `tail_plain`); `bloom_x2` writes the [H, W, 3] image.  At
+1920x1080 that is 10 launches a frame (4 downs, the tail from mip 4, 4
+ups, the expansion); at 256x128 4 (the tail from mip 1).  The chain's
+launches are dependent launches (csrc/bloom.cu).  The emissive extract
+stays plain torch on both devices (its pow and exp2 come from each
+device's math library).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -198,12 +206,89 @@ def bloom_chain(g0, width: int, height: int, down, up_add):
     return acc
 
 
+# What the tail can hold: the most dynamic shared memory an H100 block may
+# hold (227 KB, kTailMaxSmem in csrc/bloom.cu).
+TAIL_SMEM_BYTES = 232_448
+# Where the chain splits: the tail starts at the first level whose mips down
+# to the last fit in 48 KB.  The down and up chain at 1920x1080 on the H100
+# (PERF.md §6, `python3 -m niagara_tpu_torch.sweep bloom`; device ms of 20
+# chains, then ms a chain of 100 back to back): the tail from mip 4 (32.7 KB)
+# 0.0505, 0.0505; from mip 5 0.0492, 0.0920; from mip 3 (130.6 KB, within
+# the 227 KB the tail holds) 0.0651, 0.0650; no tail 0.0508, 0.1441 (14
+# launches: past the launch queue the host paces them).  A mip 3 tail takes
+# 0.0308 ms on one SM where its 8 levels a launch take 0.0215.
+TAIL_SPLIT_BYTES = 49_152
+_TAIL_ALIGN = 64  # floats: each level of the tail's output starts 256-byte aligned
+
+
+def level_sizes(h: int, w: int, n: int) -> list[tuple[int, int]]:
+    """The sizes of n levels of the chain from an h x w mip: each level is
+    half the one above, rounded up (`_down2`)."""
+    sizes = [(h, w)]
+    for _ in range(1, n):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        sizes.append((h, w))
+    return sizes
+
+
+def _tail_smem_bytes(sizes) -> int:
+    """Shared memory the tail takes for these levels: each level's three
+    planes, 16-byte aligned (bloom_tail_launch)."""
+    return sum((3 * h * w + 3) // 4 * 4 for h, w in sizes) * 4
+
+
+@functools.lru_cache(maxsize=16)
+def tail_start(levels: int, h: int, w: int) -> int:
+    """The first level of the chain from an h x w mip 0 whose mips down to
+    the last fit in TAIL_SPLIT_BYTES of shared memory; `levels` if none
+    does.  The tail runs when it has at least two levels."""
+    sizes = level_sizes(h, w, levels)
+    return next((k for k in range(levels) if _tail_smem_bytes(sizes[k:]) <= TAIL_SPLIT_BYTES), levels)
+
+
+def split_chain(mip0, levels: int, start: int, down, up_add, tail):
+    """The chain from mip 0 split at `start` (capped at the last level):
+    `down` to level start, `tail(mips[start], levels - start)` (its written
+    levels, the last being the accumulated level start) where that holds at
+    least two levels, then `up_add` back to level 0.  Returns the
+    half-resolution bloom."""
+    start = min(start, levels - 1)
+    mips = [mip0]
+    for _ in range(start):
+        mips.append(down(mips[-1]))
+    acc = tail(mips[start], levels - start)[-1] if levels - start >= 2 else mips[start]
+    for i in range(start - 1, -1, -1):
+        acc = up_add(acc, mips[i])
+    return acc
+
+
+def tail_plain(src, n: int) -> list:
+    """The tail's levels from src (the chain's level `start`, n levels):
+    `_down2` to each level below, then `up2_add_plain` back up; returns
+    what bloom_tail writes, in its order: the downs' levels 1..n-1, then
+    the ups' levels n-2..0 (the last is the tail's result)."""
+    mips = [src]
+    for _ in range(1, n):
+        mips.append(_down2(mips[-1]))
+    written, acc = mips[1:], mips[-1]
+    for mip in mips[-2::-1]:
+        acc = up2_add_plain(acc, mip)
+        written.append(acc)
+    return written
+
+
+def cuda_chain(mip0, levels: int):
+    """The chain from mip 0 on bloom.cu's kernels: the large levels a level
+    a launch, the tail from `tail_start` in one."""
+    return split_chain(mip0, levels, tail_start(levels, *mip0.shape[1:]), down2_cuda, up2_add_cuda, tail_cuda)
+
+
 def compute_bloom(g0, width: int, height: int):
     """Full bloom chain; returns the half-res bloom image [3, bh, bw]: the
     plain filters on a CPU tensor, bloom.cu's kernels on a CUDA one."""
     if g0.device.type == "cpu":
         return bloom_chain(g0, width, height, _down2, up2_add_plain)
-    return bloom_chain(g0, width, height, down2_cuda, up2_add_cuda)
+    return cuda_chain(extract_emissive(g0, width, height), bloom_levels(width, height))
 
 
 def sample_bloom_fullres(bloom_half, width: int, height: int):
@@ -249,12 +334,13 @@ _DOWN_W, _UP_W, _X2_W = _weights()
 
 
 def _expect_image(t, what: str):
-    if t.dim() != 3 or t.dtype != torch.float32 or t.device.type != "cuda":
-        raise ValueError(f"{what}: expected float32 [C, h, w] on cuda, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.dim() != 3 or t.shape[0] != 3 or t.dtype != torch.float32 or t.device.type != "cuda":
+        raise ValueError(f"{what}: expected float32 [3, h, w] on cuda, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def down2_cuda(src):
-    """The bloom_down kernel (csrc/bloom.cu): `_down2`'s contract."""
+    """The bloom_down kernel (csrc/bloom.cu): `_down2`'s contract on a
+    [3, h, w] image."""
     _build.require_cuda(src, "bloom_down")
     _expect_image(src, "bloom_down source")
     src = src.contiguous()
@@ -268,7 +354,8 @@ def down2_cuda(src):
 
 
 def up2_add_cuda(src, mip):
-    """The bloom_up kernel (csrc/bloom.cu): `up2_add_plain`'s contract."""
+    """The bloom_up kernel (csrc/bloom.cu): `up2_add_plain`'s contract on
+    [3, h, w] images."""
     _build.require_cuda(src, "bloom_up")
     _expect_image(src, "bloom_up source")
     _expect_image(mip, "bloom_up mip")
@@ -283,6 +370,41 @@ def up2_add_cuda(src, mip):
     _build.LAUNCHES["bloom_up"] += 1
     _build.check(rc, "bloom_up")
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def tail_layout(h: int, w: int, n: int):
+    """The tail's TailLevels for n levels from an h x w source, the floats
+    of its output and, in tail_plain's order, each written level's
+    (offset, (h, w)).  Raises ValueError where they do not fit the tail."""
+    sizes = level_sizes(h, w, n)
+    if not 2 <= n <= 8 or _tail_smem_bytes(sizes) > TAIL_SMEM_BYTES:
+        raise ValueError(f"bloom_tail: {n} levels from {h}x{w} do not fit its shared memory")
+    levels = _build.TailLevels()
+    levels.n = n
+    levels.h[:n] = [s[0] for s in sizes]
+    levels.w[:n] = [s[1] for s in sizes]
+    written, off = [], 0
+    for k, field in [(k, "down_off") for k in range(1, n)] + [(k, "up_off") for k in range(n - 2, -1, -1)]:
+        getattr(levels, field)[k] = off
+        written.append((off, sizes[k]))
+        off += (3 * sizes[k][0] * sizes[k][1] + _TAIL_ALIGN - 1) // _TAIL_ALIGN * _TAIL_ALIGN
+    return levels, off, written
+
+
+def tail_cuda(src, n: int) -> list:
+    """The bloom_tail kernel (csrc/bloom.cu): `tail_plain`'s contract."""
+    _build.require_cuda(src, "bloom_tail")
+    _expect_image(src, "bloom_tail source")
+    src = src.contiguous()
+    _, h, w = src.shape
+    levels, floats, written = tail_layout(h, w, n)
+    out = torch.empty(floats, dtype=torch.float32, device=src.device)
+    rc = _build.lib().bloom_tail_launch(src.data_ptr(), out.data_ptr(), levels, _DOWN_W, _UP_W,
+                                        _build.stream_ptr(src))
+    _build.LAUNCHES["bloom_tail"] += 1
+    _build.check(rc, "bloom_tail")
+    return [out[off:off + 3 * lh * lw].view(3, lh, lw) for off, (lh, lw) in written]
 
 
 def bilinear_x2_cuda(src, oh: int, ow: int):

@@ -13,7 +13,7 @@ same inputs, bit for bit.
 they return); `kernel_parity_check` renders the small opaque and alpha
 scenes on the card and runs all four, so every kernel instance is held:
 setup_kernel<false> and <true>, raster_tile<false> and <true> over the
-whole grid and over a band (band_row0), shade_px, the three bloom
+whole grid and over a band (band_row0), shade_px, the four bloom
 kernels and trace_any_hit<false> and <true>.  Any difference raises
 ParityError on the first output that differs.
 """
@@ -185,12 +185,16 @@ def replay_band(args, row0: int) -> list[dict]:
 
 def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
     """bloom.cu's kernels on a frame's g0 with its emissive channel
-    replaced by seeded nonzero values (the scenes' own is 0): each level of
-    bloom_down, bloom_up and bloom_x2 against its plain version on the
-    same input, then compute_bloom and sample_bloom_fullres against the
-    plain chain, all bit for bit.  Returns the seeded g0, the mip chain,
-    the levels' calls in order (name, `kernel` and `plain` callables, the
-    input `src` and, for bloom_up, `mip`) and the chain's outputs."""
+    replaced by seeded nonzero values (the scenes' own is 0): the frame's
+    calls one by one, each against its plain version on the same input:
+    bloom_down on each level above the tail's start, the tail (bloom_tail
+    from `tail_start`) with every level it writes against tail_plain's,
+    bloom_up back up and bloom_x2; then compute_bloom and
+    sample_bloom_fullres against the plain chain, all bit for bit.  Returns
+    the seeded g0, the mip chain, the tail's start, the calls in order
+    (name, `kernel` and `plain` callables, the input `src`, for bloom_up
+    `mip`, for bloom_tail its level count `n`; `levels` compared) and the
+    chain's outputs."""
     from ..ops import bloom
 
     gen = torch.Generator(device=g0.device).manual_seed(seed)
@@ -200,20 +204,32 @@ def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
     levels = bloom.bloom_levels(width, height)
     for _ in range(1, levels):
         mips.append(bloom._down2(mips[-1]))
+    start = min(bloom.tail_start(levels, *mips[0].shape[1:]), levels - 1)
     calls = []
 
     def level(name, kernel, plain, **inputs):
         out = plain()
         same_bits(kernel(), out, f"{name} on {tuple(inputs['src'].shape)}")
-        calls.append(dict(name=name, kernel=kernel, plain=plain, out=out, **inputs))
+        calls.append(dict(name=name, kernel=kernel, plain=plain, out=out, levels=1, **inputs))
         return out
 
-    for src in mips[:-1]:
+    for src in mips[:start]:
         level("bloom_down", lambda s=src: bloom.down2_cuda(s), lambda s=src: bloom._down2(s), src=src)
-    acc = mips[-1]
-    for mip in mips[-2::-1]:
-        acc = level("bloom_up", lambda s=acc, m=mip: bloom.up2_add_cuda(s, m),
-                    lambda s=acc, m=mip: bloom.up2_add_plain(s, m), src=acc, mip=mip)
+    acc = mips[start]
+    if levels - start >= 2:
+        src, n = mips[start], levels - start
+        written = [f"level {start + k} (down)" for k in range(1, n)] + [f"level {start + k} (up)"
+                                                                       for k in range(n - 2, -1, -1)]
+        got, plain = bloom.tail_cuda(src, n), bloom.tail_plain(src, n)
+        expect(len(got) == len(plain) == len(written), f"bloom_tail wrote {len(got)} levels, not {len(written)}")
+        for what, k_out, p_out in zip(written, got, plain):
+            same_bits(k_out, p_out, f"bloom_tail {what} from {tuple(src.shape)}")
+        calls.append(dict(name="bloom_tail", kernel=lambda: bloom.tail_cuda(src, n),
+                          plain=lambda: bloom.tail_plain(src, n), out=plain, levels=len(plain), src=src, n=n))
+        acc = plain[-1]
+    for i in range(start - 1, -1, -1):
+        acc = level("bloom_up", lambda s=acc, m=mips[i]: bloom.up2_add_cuda(s, m),
+                    lambda s=acc, m=mips[i]: bloom.up2_add_plain(s, m), src=acc, mip=mips[i])
     level("bloom_x2", lambda s=acc: bloom.bilinear_x2_cuda(s, height, width),
           lambda s=acc: bloom._bilinear_x2(s, height, width).permute(1, 2, 0), src=acc)
 
@@ -224,7 +240,7 @@ def replay_bloom(g0, width: int, height: int, seed: int = 6) -> dict:
     same_bits(full, bloom._bilinear_x2(plain_half, height, width).permute(1, 2, 0),
               "sample_bloom_fullres against the plain expansion")
     expect(bool((half > 0).all()), "the bloom of a nonzero emissive is not positive")
-    return dict(g0=g0, mips=mips, levels=levels, calls=calls, half=half, full=full)
+    return dict(g0=g0, mips=mips, levels=levels, start=start, calls=calls, half=half, full=full)
 
 
 def replay_trace(bvh, trace: dict, counters: bool = False) -> dict:
@@ -327,4 +343,4 @@ def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128)
         occluded += int(tr["occluded"].sum())
     return dict(setup_records_live=held["live"], covered_px=held["covered"],
                 calls={k: sum(c["name"] == k for c in calls) for k in dict.fromkeys(c["name"] for c in calls)},
-                bloom_levels=len(bl["calls"]), rays=rays, occluded_rays=occluded)
+                bloom_levels=sum(c["levels"] for c in bl["calls"]), rays=rays, occluded_rays=occluded)

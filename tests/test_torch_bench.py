@@ -278,8 +278,9 @@ def test_stage_timer_frames_bit_for_bit(small, kind):
 # ---- the gate ----
 
 def _flip(t):
-    """t with the lowest bit of its first word flipped."""
-    t = t.clone()
+    """t with the lowest bit of its first word flipped (a contiguous copy:
+    the chain's level 0 comes from the extract's channel-last view)."""
+    t = t.clone(memory_format=torch.contiguous_format)
     if t.dtype == torch.bool:
         t.view(-1)[0] = ~t.view(-1)[0]
     elif t.dtype == torch.float32:
@@ -308,6 +309,7 @@ def plain_kernels(monkeypatch):
     monkeypatch.setattr(raster_tile, "shade_cuda", raster_tile.shade_plain)
     monkeypatch.setattr(bloom, "down2_cuda", bloom._down2)
     monkeypatch.setattr(bloom, "up2_add_cuda", bloom.up2_add_plain)
+    monkeypatch.setattr(bloom, "tail_cuda", bloom.tail_plain)
     monkeypatch.setattr(bloom, "bilinear_x2_cuda", lambda s, oh, ow: bloom._bilinear_x2(s, oh, ow).permute(1, 2, 0))
     monkeypatch.setattr(shadow, "trace_cuda", _plain_trace())
     return monkeypatch
@@ -366,6 +368,9 @@ FLIPS = {
     "raster": (raster_tile, "raster_cuda", _flip_raster()),
     "shade": (raster_tile, "shade_cuda", lambda *a: _flip(raster_tile.shade_plain(*a))),
     "bloom": (bloom, "up2_add_cuda", lambda s, m: _flip(bloom.up2_add_plain(s, m))),
+    # one bit of one intermediate level of the tail (the second down level)
+    "bloom_tail": (bloom, "tail_cuda", lambda s, n: [_flip(x) if i == 1 else x
+                                                     for i, x in enumerate(bloom.tail_plain(s, n))]),
     "trace": (shadow, "trace_cuda", _plain_trace(flip_blocks=0)),
     "trace_one_block": (shadow, "trace_cuda", _plain_trace(flip_blocks=1)),
 }
@@ -375,7 +380,8 @@ FLIPS = {
 CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "setup early"),
           "raster": ("raster", "raster early"), "raster_window": ("raster_window", "raster_window band"),
           "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
-          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "trace": ("trace", "trace_alpha"),
+          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "bloom_tail": ("bloom_tail", "bloom_tail"),
+          "trace": ("trace", "trace_alpha"),
           "trace_one_block": ("trace_one_block", "trace_alpha on one block")}
 FLIPS.update(raster_window=(raster_tile, "raster_cuda", _flip_raster(band=True)),
              raster_alpha_window=(raster_tile, "raster_cuda", _flip_raster(band=True, alpha=True)))
@@ -387,7 +393,7 @@ def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
     mod, name, fake = FLIPS[flip]
     plain_kernels.setattr(mod, name, fake)
     with pytest.raises(parity.ParityError, match=f"^{kernel}"):
-        if which == "bloom":
+        if which.startswith("bloom"):
             parity.replay_bloom(captured.cap["g0"], W, H)
         elif which.startswith("trace"):
             parity.replay_trace(captured.bvh, captured.trace)

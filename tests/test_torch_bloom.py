@@ -15,6 +15,15 @@ nonzero emissive at an odd size (23x37), an even one (24x36) and 1080x1920.
   the whole chain: exact, which holds the box sum's order and the chain's
   composition to the reference's.
 
+* The chain as the card splits it (`split_chain`: `_down2`/`up2_add_plain`
+  on the levels above `tail_start`, then the tail's plain twin
+  `tail_plain`): the split rule at 1920x1080 (the tail from mip 4),
+  256x128 (from mip 1), 23x37 and 24x36 (the whole chain), 1x1 and
+  16384x16384 (no tail: fewer than two levels left); bit for bit with
+  `bloom_chain` at every
+  start, within RTOL/ATOL of the reference's compute_bloom and exact on the
+  exactly decoded input.
+
 The kernels (csrc/bloom.cu) are held to these plain versions bit for bit
 on the card (tests/test_torch_kernels.py, chip_smoke.py)."""
 
@@ -119,3 +128,82 @@ def test_cpu_tensors_take_the_plain_filters():
     assert _build.LAUNCHES == before
     with pytest.raises(RuntimeError, match="no kernel"):
         bloom.down2_cuda(out)
+
+
+def _split(g0, w, h, start=None):
+    """The chain as compute_bloom splits it on the card, on the plain
+    filters and the tail's plain twin (at `start`, or the rule's)."""
+    levels = bloom.bloom_levels(w, h)
+    mip0 = bloom.extract_emissive(torch.from_numpy(g0), w, h)
+    if start is None:
+        start = bloom.tail_start(levels, *mip0.shape[1:])
+    return bloom.split_chain(mip0, levels, start, bloom._down2, bloom.up2_add_plain, bloom.tail_plain)
+
+
+@pytest.mark.parametrize("size, start, tail", [((1920, 1080), 4, 4), ((256, 128), 1, 7), ((37, 23), 0, 5),
+                                               ((36, 24), 0, 5), ((1, 1), 0, 1), ((16384, 16384), 7, 1)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_tail_start_rule(size, start, tail):
+    """The tail starts at the first level whose mips down to the last fit in
+    TAIL_SPLIT_BYTES (within what the tail can hold), and runs only with two
+    levels or more (1x1 has one level; at 16384x16384 only the last mip
+    fits)."""
+    w, h = size
+    levels = bloom.bloom_levels(w, h)
+    got = bloom.tail_start(levels, (h + 1) // 2, (w + 1) // 2)
+    assert (got, levels - got) == (start, tail)
+    sizes = bloom.level_sizes((h + 1) // 2, (w + 1) // 2, levels)
+    assert bloom.TAIL_SPLIT_BYTES <= bloom.TAIL_SMEM_BYTES
+    assert sum(3 * lh * lw * 4 for lh, lw in sizes[got:]) <= bloom.TAIL_SPLIT_BYTES
+    assert got == 0 or sum(3 * lh * lw * 4 for lh, lw in sizes[got - 1:]) > bloom.TAIL_SPLIT_BYTES
+
+
+@pytest.mark.parametrize("size", [(23, 37), (24, 36), (128, 256), (200, 3)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_split_chain_exact_at_every_start(size):
+    """Large levels by the plain filters down to any start, the tail's plain
+    twin, then back up: bloom_chain's result bit for bit."""
+    h, w = size
+    g0 = _g0(11, h, w)
+    ref = bloom.bloom_chain(torch.from_numpy(g0), w, h, bloom._down2, bloom.up2_add_plain)
+    for start in range(bloom.bloom_levels(w, h) + 1):
+        assert torch.equal(_split(g0, w, h, start).view(torch.int32), ref.view(torch.int32)), start
+
+
+def test_tail_plain_levels_and_layout():
+    """tail_plain writes the downs' levels, then the ups' back to its
+    source's size, the last being the chain's accumulated level; the
+    kernel's output layout holds them in that order, 256-byte aligned and
+    apart."""
+    src = torch.from_numpy(np.random.default_rng(5).uniform(0, 4, (3, 68, 120)).astype(np.float32))
+    written = bloom.tail_plain(src, 5)
+    shapes = [tuple(t.shape[1:]) for t in written]
+    assert shapes == [(34, 60), (17, 30), (9, 15), (5, 8), (9, 15), (17, 30), (34, 60), (68, 120)]
+    mips = [src] + written[:4]
+    acc = mips[-1]
+    for mip in mips[-2::-1]:
+        acc = bloom.up2_add_plain(acc, mip)
+    assert torch.equal(written[-1], acc)
+    levels, floats, layout = bloom.tail_layout(68, 120, 5)
+    assert [hw for _, hw in layout] == shapes and levels.n == 5
+    ends = 0
+    for off, (lh, lw) in layout:
+        assert off % 64 == 0 and off >= ends
+        ends = off + 3 * lh * lw
+    assert floats >= ends and list(levels.down_off[1:5]) == [o for o, _ in layout[:4]]
+    assert list(levels.up_off[:4]) == [o for o, _ in layout[4:]][::-1]
+
+
+def test_split_chain_against_reference(emissive):
+    """The split chain against the reference's compute_bloom, within the
+    math libraries' last bits (the extract's pow and exp2)."""
+    g0, _ = emissive
+    h, w = g0.shape[:2]
+    ref = np.asarray(jbloom.compute_bloom(jnp.asarray(g0), w, h))
+    np.testing.assert_allclose(_split(g0, w, h).numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_split_chain_exact_on_exactly_decoded_input(size):
+    h, w = size
+    g0 = _g0(7, h, w, exact=True)
+    np.testing.assert_array_equal(_split(g0, w, h).numpy(), np.asarray(jbloom.compute_bloom(jnp.asarray(g0), w, h)))

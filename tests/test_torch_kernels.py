@@ -18,8 +18,10 @@ own layer, and the layer's one-stream shade against their plain versions,
 and the normal-mapped frame on the card against the CPU; the single-pass
 early pass of configs 0 and 1; the viewer on the card (PNGs, CUDA-event
 frame times, debug views and HUD equal to the CPU's).  The bloom kernels (csrc/bloom.cu) against
-their plain versions bit for bit on seeded nonzero inputs at odd sizes,
-and compute_bloom's kernel path against its plain path.  The BVH walk
+their plain versions bit for bit on seeded nonzero inputs at odd sizes
+(the tail's every written level, from aligned and unaligned sources), and
+compute_bloom's kernel path (the large levels, then the tail) against its
+plain path.  The BVH walk
 (csrc/trace.cu, both instances) against trace_plain on seeded rays: flags
 and per-ray step counts equal, a budget that cuts rays short too; and the
 ray-traced frame on the card against the CPU.  And the G-buffer
@@ -342,11 +344,33 @@ def test_bloom_kernels_match_plain(h, w):
         got = bloom.bilinear_x2_cuda(src, oh, ow)
         assert got.shape == (oh, ow, 3)
         assert torch.equal(_bits(got), _bits(bloom._bilinear_x2(src, oh, ow).permute(1, 2, 0)))
-    assert {k: _build.LAUNCHES[k] - before[k] for k in ("bloom_down", "bloom_up", "bloom_x2")} == \
-        {"bloom_down": 1, "bloom_up": 2, "bloom_x2": 2}
+    assert {k: _build.LAUNCHES[k] - before[k] for k in ("bloom_down", "bloom_up", "bloom_tail", "bloom_x2")} == \
+        {"bloom_down": 1, "bloom_up": 2, "bloom_tail": 0, "bloom_x2": 2}
 
 
-@pytest.mark.parametrize("h, w", [(128, 256), (23, 37)])
+@pytest.mark.parametrize("h, w, n", [(68, 120, 5), (37, 23, 5), (64, 128, 8), (2, 3, 2), (1, 1, 2)])
+def test_bloom_tail_matches_plain(h, w, n):
+    """The tail's one launch from a seeded nonzero [3, h, w] source: every
+    level it writes (the downs, then the ups back to h x w) equals
+    tail_plain's bit for bit, from the source as allocated (16-byte copies
+    where w is a multiple of 4) and from a copy 4 bytes off alignment (4-byte
+    copies); one launch counted each."""
+    _need_cuda()
+    rng = np.random.default_rng(h * 1000 + w + n)
+    src = torch.as_tensor(rng.uniform(0.0, 8.0, (3, h, w)).astype(np.float32), device=DEV)
+    unaligned = torch.empty(3 * h * w + 1, dtype=torch.float32, device=DEV)[1:].view(3, h, w)
+    unaligned.copy_(src)
+    plain = bloom.tail_plain(src, n)
+    before = _build.LAUNCHES["bloom_tail"]
+    runs = [bloom.tail_cuda(src, n), bloom.tail_cuda(unaligned, n)]
+    assert _build.LAUNCHES["bloom_tail"] - before == len(runs)
+    for got in runs:
+        assert len(got) == len(plain) == 2 * (n - 1)
+        for a, b in zip(got, plain):
+            assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("h, w", [(128, 256), (23, 37), (1080, 1920)])
 def test_compute_bloom_kernel_path_matches_plain_path(h, w):
     """The whole chain and the full-resolution expansion on a seeded g0
     with nonzero emissive: the kernel path equals the plain filters on the
@@ -354,7 +378,12 @@ def test_compute_bloom_kernel_path_matches_plain_path(h, w):
     _need_cuda()
     rng = np.random.default_rng(h + w)
     g0 = torch.as_tensor(rng.uniform(0.0, 1.0, (h, w, 4)).astype(np.float32), device=DEV)
+    levels = bloom.bloom_levels(w, h)
+    start = min(bloom.tail_start(levels, (h + 1) // 2, (w + 1) // 2), levels - 1)
+    before = dict(_build.LAUNCHES)
     half = bloom.compute_bloom(g0, w, h)
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in ("bloom_down", "bloom_up", "bloom_tail")}
+    assert launched == {"bloom_down": start, "bloom_up": start, "bloom_tail": int(levels - start >= 2)}
     assert torch.equal(_bits(half), _bits(bloom.bloom_chain(g0, w, h, bloom._down2, bloom.up2_add_plain)))
     full = bloom.sample_bloom_fullres(half, w, h)
     assert torch.equal(_bits(full), _bits(bloom._bilinear_x2(half, h, w).permute(1, 2, 0)))
