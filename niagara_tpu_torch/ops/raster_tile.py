@@ -39,6 +39,20 @@ GIANT_CAPACITY = 64
 ATTR_CHANNELS = 13  # nx ny nz u v viewz draw mat post vid0 vid1 vid2 duv
 
 
+def class_budgets(tri_slots: int, *, mid_capacity: int | None = None, small_capacity: int | None = None,
+                  midb_capacity: int | None = None, giant_capacity: int = GIANT_CAPACITY,
+                  tiny2_capacity: int | None = None) -> tuple:
+    """The triangle budgets (tiny2, small, midA, midB, giant) of emit_pairs'
+    classes for a setup of `tri_slots` triangles: each given one, else its
+    default."""
+    T = tri_slots
+    return (max(T // 2, 256) if tiny2_capacity is None else tiny2_capacity,
+            max(1 << 15, T // 8) if small_capacity is None else small_capacity,
+            max(4096, T // 64) if mid_capacity is None else mid_capacity,
+            max(512, T // 1024) if midb_capacity is None else midb_capacity,
+            giant_capacity)
+
+
 def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
                mid_capacity: int | None = None, small_capacity: int | None = None,
                midb_capacity: int | None = None, giant_capacity: int = GIANT_CAPACITY,
@@ -46,7 +60,8 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
     """Tile-sorted (tile, tri) pairs.  Returns dict(pair_tri [P], tile_start
     [n_tiles+1], pair_count, dropped, drop_vec [6] -- class overflow per
     (tiny2, small, midA, midB, giant, sort truncation) --, demand_vec [6]
-    -- live triangles per (tiny1, tiny2, small, midA, midB, giant)).
+    -- live triangles per (tiny1, tiny2, small, midA, midB, giant) --,
+    pair_demand -- the live pairs before pair_capacity clamps them).
 
     `row_window=(row0, n_rows)` keeps the pairs of the tile rows [row0,
     row0 + n_rows) of the tiles_x x tiles_y grid, numbered from the band's
@@ -57,14 +72,9 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
     valid = setup["valid"]
     T = valid.shape[0]
     dev = valid.device
-    if small_capacity is None:
-        small_capacity = max(1 << 15, T // 8)
-    if mid_capacity is None:
-        mid_capacity = max(4096, T // 64)
-    if midb_capacity is None:
-        midb_capacity = max(512, T // 1024)
-    if tiny2_capacity is None:
-        tiny2_capacity = max(T // 2, 256)
+    tiny2_capacity, small_capacity, mid_capacity, midb_capacity, giant_capacity = class_budgets(
+        T, mid_capacity=mid_capacity, small_capacity=small_capacity, midb_capacity=midb_capacity,
+        giant_capacity=giant_capacity, tiny2_capacity=tiny2_capacity)
     tri_bits = max(T - 1, 1).bit_length()
     assert tri_bits + n_tiles.bit_length() <= 32, "packed pair key overflows u32"
 
@@ -139,6 +149,7 @@ def emit_pairs(setup: dict, *, tiles_x: int, tiles_y: int, pair_capacity: int,
         pair_tri=packed & ((1 << tri_bits) - 1),
         tile_start=torch.searchsorted(packed, bounds, side="left"),
         pair_count=torch.clamp_max(pair_count, pair_capacity),
+        pair_demand=pair_count,
         dropped=drop_vec.sum(),
         drop_vec=drop_vec,
         demand_vec=demand_vec,
@@ -158,15 +169,29 @@ def rasterize_tiles(setup: dict, depth, vis, *, tiles_x: int, tiles_y: int, pair
     band's [n_rows * 8, W] rows, and coverage is computed at full-grid
     pixel rows, so the band equals the matching rows of a full render.
     Returns (depth, vis, stats) with stats = emit_pairs' counters +
-    `stream`, the record stream `shade_tiles` resolves attributes from."""
+    `stream`, the record stream `shade_tiles` resolves attributes from, +
+    `budgets`, the class budgets (class_budgets) and pair_capacity: what
+    demand_vec[1:] and pair_demand are held to."""
     cc = dict(zip(("tiny2_capacity", "small_capacity", "mid_capacity", "midb_capacity"), class_caps or ()))
     pairs = emit_pairs(setup, tiles_x=tiles_x, tiles_y=tiles_y, pair_capacity=pair_capacity, row_window=row_window,
                        giant_capacity=giant_capacity, **cc)
+    budgets = class_budgets(setup["valid"].shape[0], giant_capacity=giant_capacity, **cc) + (pair_capacity,)
     args = (pairs["tile_start"], pairs["pair_tri"], setup["rec"], frag_offset, depth, vis, tiles_x)
     raster = raster_plain if depth.device.type == "cpu" else raster_cuda
     depth, vis = raster(*args, alpha_test=alpha_test, band_row0=row_window[0] if row_window else None)
     stream = dict(rec=setup["rec"], frag_off=frag_offset, count=setup["count"])
-    return depth, vis, dict(pairs, stream=stream)
+    return depth, vis, dict(pairs, stream=stream, budgets=budgets)
+
+
+def count_pairs(stages, name: str, stats: dict) -> None:
+    """A rasterize_tiles pass's pair demand on `stages` (a
+    utils.profiling.StageTimer, or None): "<name> pair classes", the
+    triangles of the tiny2, small, midA, midB and giant classes against
+    their budgets, and "<name> pairs", the live pairs against
+    pair_capacity."""
+    if stages is not None:
+        stages.count(f"{name} pair classes", stats["demand_vec"][1:], stats["budgets"][:5])
+        stages.count(f"{name} pairs", stats["pair_demand"], stats["budgets"][5])
 
 
 def raster_cuda(tile_start, pair_tri, rec, frag_offset, depth, vis, tiles_x, alpha_test=False, band_row0=None):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.profiling import stage_marker
+from ..utils.profiling import span
 from . import cullmath
 
 MAX_LEAF = 8
@@ -527,11 +527,16 @@ def trace_any_hit(bvh: ShadowBVH, origin, direction, *, t_min: float = 1e-3, t_m
     run trace.cu's kernel (trace_cuda, which takes the rays in `order`, a
     permutation such as ray_order's), CPU tensors trace_plain (whose
     result no order changes); both also give each ray's step count."""
+    return _walk(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps, alpha_test=alpha_test,
+                 order=order)[0]
+
+
+def _walk(bvh: ShadowBVH, origin, direction, *, order=None, **kw):
+    """(occluded, steps) of trace_any_hit's walk: trace_plain on CPU
+    tensors, trace_cuda (taking the rays in `order`) on CUDA ones."""
     if origin.device.type == "cpu":
-        return trace_plain(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps,
-                           alpha_test=alpha_test)[0]
-    return trace_cuda(bvh, origin, direction, t_min=t_min, t_max=t_max, max_steps=max_steps, alpha_test=alpha_test,
-                      order=order)[0]
+        return trace_plain(bvh, origin, direction, **kw)
+    return trace_cuda(bvh, origin, direction, order=order, **kw)
 
 
 # ------------------------------------------------------------ filters and the pass
@@ -639,49 +644,54 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     with the alpha test.  chunked=True walks bench.py's budget
     (CHUNKED_STEPS) instead of 1024 steps.  `capture` receives the traced
     rays and their result ("trace": origin, direction, alpha_test,
-    max_steps, occluded, and the kernel's ray order, None on the CPU).  `stages` (a utils.profiling.StageTimer) gets
-    the boundaries "rt rays+trace" and "rt fill+blur"."""
+    max_steps, occluded, and the kernel's ray order, None on the CPU).  Its
+    spans (utils.profiling.span) are "rt rays+trace" and "rt fill+blur";
+    `stages` (a StageTimer) gets their boundaries and the count "rt steps":
+    the walk's steps, a ray cut at the budget counting max_steps, against
+    its rays."""
     dev = depth.device
     sw, sh = width // scale, height // scale
-    d_small, wpos = world_positions(depth, inverse_view_projection, width, height, scale)
-    valid = d_small > 0.0
+    with span(stages, "rt rays+trace"):
+        d_small, wpos = world_positions(depth, inverse_view_projection, width, height, scale)
+        valid = d_small > 0.0
 
-    jit = sun_jitter if blur else 0.0
-    ys, xs = torch.meshgrid(torch.arange(sh, dtype=torch.float32, device=dev),
-                            torch.arange(sw, dtype=torch.float32, device=dev), indexing="ij")
-    n0 = cullmath.gradient_noise(torch.stack([xs, ys], dim=-1))
-    n1 = cullmath.gradient_noise(torch.stack([ys, xs], dim=-1))
-    sun = torch.as_tensor(np.asarray(sun_direction, np.float32), device=dev)
-    dx = sun[0] + (n0 * 2 - 1) * jit
-    dy = sun[1].expand(sh, sw)
-    dz = sun[2] + (n1 * 2 - 1) * jit
-    norm = torch.sqrt((dx * dx + dy * dy) + dz * dz)
-    dirs = torch.stack([dx, dy, dz], dim=-1) / norm[..., None]
+        jit = sun_jitter if blur else 0.0
+        ys, xs = torch.meshgrid(torch.arange(sh, dtype=torch.float32, device=dev),
+                                torch.arange(sw, dtype=torch.float32, device=dev), indexing="ij")
+        n0 = cullmath.gradient_noise(torch.stack([xs, ys], dim=-1))
+        n1 = cullmath.gradient_noise(torch.stack([ys, xs], dim=-1))
+        sun = torch.as_tensor(np.asarray(sun_direction, np.float32), device=dev)
+        dx = sun[0] + (n0 * 2 - 1) * jit
+        dy = sun[1].expand(sh, sw)
+        dz = sun[2] + (n1 * 2 - 1) * jit
+        norm = torch.sqrt((dx * dx + dy * dy) + dz * dz)
+        dirs = torch.stack([dx, dy, dz], dim=-1) / norm[..., None]
 
-    rows, cols = ray_pixels(sh, sw, checkerboard, parity, dev)
-    if checkerboard:
-        origin, direction = wpos[rows, cols].reshape(-1, 3), dirs[rows, cols].reshape(-1, 3)
-    else:
-        origin, direction = wpos.reshape(-1, 3), dirs.reshape(-1, 3)
-    max_steps = CHUNKED_STEPS if chunked else 1024
-    order = ray_order(sh, sw, checkerboard, parity, dev) if dev.type == "cuda" else None
-    occ = trace_any_hit(bvh, origin, direction, max_steps=max_steps, alpha_test=quality >= 1, order=order)
-    if capture is not None:
-        capture["trace"] = dict(origin=origin, direction=direction, alpha_test=quality >= 1, max_steps=max_steps,
-                                occluded=occ, order=order)
-    stage_marker(stages)("rt rays+trace")
-    if checkerboard:
-        occluded = torch.zeros((sh, sw), dtype=torch.bool, device=dev)
-        occluded[rows, cols] = occ.reshape(rows.shape)
-    else:
-        occluded = occ.reshape(sh, sw)
+        rows, cols = ray_pixels(sh, sw, checkerboard, parity, dev)
+        if checkerboard:
+            origin, direction = wpos[rows, cols].reshape(-1, 3), dirs[rows, cols].reshape(-1, 3)
+        else:
+            origin, direction = wpos.reshape(-1, 3), dirs.reshape(-1, 3)
+        max_steps = CHUNKED_STEPS if chunked else 1024
+        order = ray_order(sh, sw, checkerboard, parity, dev) if dev.type == "cuda" else None
+        occ, steps = _walk(bvh, origin, direction, max_steps=max_steps, alpha_test=quality >= 1, order=order)
+        if capture is not None:
+            capture["trace"] = dict(origin=origin, direction=direction, alpha_test=quality >= 1, max_steps=max_steps,
+                                    occluded=occ, order=order)
+        if stages is not None:  # a ray cut at the budget (-1) walked max_steps
+            stages.count("rt steps", steps.remainder(max_steps + 1).sum(), steps.numel())
+    with span(stages, "rt fill+blur"):
+        if checkerboard:
+            occluded = torch.zeros((sh, sw), dtype=torch.bool, device=dev)
+            occluded[rows, cols] = occ.reshape(rows.shape)
+        else:
+            occluded = occ.reshape(sh, sw)
 
-    shadow = torch.where(valid & occluded, 0.0, 1.0)
-    if checkerboard:
-        shadow = checkerboard_fill(shadow, d_small, parity)
-    if blur:
-        shadow = shadow_blur(shadow, d_small, znear)
-    if scale > 1:
-        shadow = shadow.repeat_interleave(scale, dim=0).repeat_interleave(scale, dim=1)
-    stage_marker(stages)("rt fill+blur")
+        shadow = torch.where(valid & occluded, 0.0, 1.0)
+        if checkerboard:
+            shadow = checkerboard_fill(shadow, d_small, parity)
+        if blur:
+            shadow = shadow_blur(shadow, d_small, znear)
+        if scale > 1:
+            shadow = shadow.repeat_interleave(scale, dim=0).repeat_interleave(scale, dim=1)
     return shadow[:height, :width]

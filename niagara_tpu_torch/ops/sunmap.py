@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config import TASK_WGSIZE, TILE_H, TILE_W
-from ..utils.profiling import stage_marker
+from ..utils.profiling import span
 from . import compact, cull, cullmath, raster, raster_tile, shadow
 
 
@@ -171,33 +171,35 @@ def render_sun_map(scene, sf, *, camera_position=None, lod_target=None, lod_enab
     (reverse depth merges by max); `row_window=(row0, n_rows)` renders only
     that band of tile rows, `depth` then being the band's rows, and the
     band equals the matching rows of a full render.  A `capture` dict
-    receives the raster kernel's inputs and the pass's counts.  `stages`
-    (a utils.profiling.StageTimer) gets the boundaries "sun cull" (draws,
-    commands, clusters), "sun setup" (transform, compact_setup) and "sun
-    raster" (pair emission, sort, raster).  Returns (map [band rows,
-    map_w], drop count)."""
-    mark = stage_marker(stages)
-    emit, lod = sun_cull(scene, sf, camera_position, lod_target, lod_enabled, lod_bias=lod_bias,
-                         texel_world=texel_world, draw_range=draw_range)
-    dvb = torch.ones(scene.num_draws, dtype=torch.int32, device=emit.device)
-    cmds = cull.build_task_commands(scene, emit, lod, dvb, capacity=cmd_capacity)
-    ccmd, clane, ccount, cover = sun_cluster_cull(scene, sf, cmds, cluster_capacity)
-    mark("sun cull")
-    tc = transform_sun(scene, sf, ccmd, clane, ccount, cmds, map_w, map_h)
-    st = raster.compact_setup(tc, map_w, map_h, 1e-3, tri_capacity)
-    mark("sun setup")
+    receives the raster kernel's inputs and the pass's counts.  Its spans
+    (utils.profiling.span) are "sun cull" (draws, commands, clusters),
+    "sun setup" (transform, compact_setup) and "sun raster" (pair
+    emission, sort, raster); `stages` (a StageTimer) gets their
+    boundaries and the pass's pair demand ("sun", raster_tile.count_pairs).
+    Returns (map [band rows, map_w], drop count)."""
+    with span(stages, "sun cull"):
+        emit, lod = sun_cull(scene, sf, camera_position, lod_target, lod_enabled, lod_bias=lod_bias,
+                             texel_world=texel_world, draw_range=draw_range)
+        dvb = torch.ones(scene.num_draws, dtype=torch.int32, device=emit.device)
+        cmds = cull.build_task_commands(scene, emit, lod, dvb, capacity=cmd_capacity)
+        ccmd, clane, ccount, cover = sun_cluster_cull(scene, sf, cmds, cluster_capacity)
+    with span(stages, "sun setup"):
+        tc = transform_sun(scene, sf, ccmd, clane, ccount, cmds, map_w, map_h)
+        st = raster.compact_setup(tc, map_w, map_h, 1e-3, tri_capacity)
 
-    tiles_x, tiles_y = map_w // TILE_W, map_h // TILE_H
-    band_h = (row_window[1] if row_window is not None else tiles_y) * TILE_H
-    if depth is None:
-        depth = torch.zeros((band_h, map_w), dtype=torch.float32, device=emit.device)
-    vis = torch.full((band_h, map_w), raster.INVALID_FRAG, dtype=torch.int32, device=emit.device)
-    carry = depth
-    # alpha-test casters against their masks, so cutouts cast holed shadows
-    alpha = bool(scene.has_alpha_masks)
-    depth, _, rst = raster_tile.rasterize_tiles(st, depth, vis, tiles_x=tiles_x, tiles_y=tiles_y,
-                                                pair_capacity=pair_capacity, alpha_test=alpha, row_window=row_window)
-    mark("sun raster")
+    with span(stages, "sun raster"):
+        tiles_x, tiles_y = map_w // TILE_W, map_h // TILE_H
+        band_h = (row_window[1] if row_window is not None else tiles_y) * TILE_H
+        if depth is None:
+            depth = torch.zeros((band_h, map_w), dtype=torch.float32, device=emit.device)
+        vis = torch.full((band_h, map_w), raster.INVALID_FRAG, dtype=torch.int32, device=emit.device)
+        carry = depth
+        # alpha-test casters against their masks, so cutouts cast holed shadows
+        alpha = bool(scene.has_alpha_masks)
+        depth, _, rst = raster_tile.rasterize_tiles(st, depth, vis, tiles_x=tiles_x, tiles_y=tiles_y,
+                                                    pair_capacity=pair_capacity, alpha_test=alpha,
+                                                    row_window=row_window)
+    raster_tile.count_pairs(stages, "sun", rst)
     if capture is not None:
         capture.update(raster=(rst["tile_start"], rst["pair_tri"], st["rec"], 0, carry, vis), alpha_test=alpha,
                        band_row0=None if row_window is None else row_window[0], draws=cmds.count,
@@ -273,18 +275,20 @@ def pack_band(packed_static, band_img, row0_px: int, map_h: int, row_above=None,
     the quads of rows [row0_px - 1, row0_px + bh) change, so `row_above` is
     the static row row0_px - 1 (None at the top) and `row_below` the static
     row row0_px + bh (None at the bottom).  Returns a new table, equal to
-    pack_sun_map of the updated map."""
-    bh, w = band_img.shape
-    above = row_above is not None and row0_px > 0
-    parts = [row_above.reshape(1, w)] if above else []
-    parts.append(band_img)
-    if row0_px + bh < map_h:
-        assert row_below is not None, "an interior band needs the static row below it"
-        parts.append(row_below.reshape(1, w))
-    n_q = (1 if above else 0) + bh
-    start = (row0_px - (1 if above else 0)) * w
-    out = packed_static.clone()
-    out[start:start + n_q * w] = pack_sun_map(torch.cat(parts, dim=0))[: n_q * w]
+    pack_sun_map of the updated map.  In the span "pack_band" (the
+    profiler's alone: the caller marks its own boundary)."""
+    with span(None, "pack_band"):
+        bh, w = band_img.shape
+        above = row_above is not None and row0_px > 0
+        parts = [row_above.reshape(1, w)] if above else []
+        parts.append(band_img)
+        if row0_px + bh < map_h:
+            assert row_below is not None, "an interior band needs the static row below it"
+            parts.append(row_below.reshape(1, w))
+        n_q = (1 if above else 0) + bh
+        start = (row0_px - (1 if above else 0)) * w
+        out = packed_static.clone()
+        out[start:start + n_q * w] = pack_sun_map(torch.cat(parts, dim=0))[: n_q * w]
     return out
 
 

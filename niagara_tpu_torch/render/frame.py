@@ -38,7 +38,7 @@ import torch
 
 from ..config import TILE_H, TILE_W
 from ..utils import math3d
-from ..utils.profiling import stage_marker
+from ..utils.profiling import span
 
 from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, shadow as shadow_ops, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
@@ -222,13 +222,15 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     "raster_alpha_test", "shade" (streams, vis) and, with the layer,
     "shade_layer".
 
-    `stages` (a utils.profiling.StageTimer, begun by the caller) gets a
-    boundary after each stage: "early draw cull", "early cluster cull"
-    (with the x-order and cluster metadata), "early setup", "early
-    emit+sort+raster", "pyramid", "late cull", "late setup+raster" (the
-    opaque/alpha group) and "layer setup+raster" (the transmission
-    group), "shade" (both buffers and the stats).  Boundaries only record
-    events: the outputs and the launches are those of stages=None."""
+    Each stage is a utils.profiling.span: "early draw cull", "early
+    cluster cull" (with the x-order and cluster metadata), "early setup",
+    "early emit+sort+raster", "pyramid", "late cull", "late setup+raster"
+    (the opaque/alpha group) and "layer setup+raster" (the transmission
+    group), "shade" (both buffers and the stats).  `stages` (a
+    StageTimer, begun by the caller) gets a boundary at the end of each
+    and each pass's pair demand (raster_tile.count_pairs, named by the
+    pass).  Boundaries and counts only record: the outputs and the
+    launches are those of stages=None."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
     if not 0 <= frag_offset <= INVALID_FRAG - frag_span(cfg):
         raise ValueError(f"frag_offset {frag_offset}: the frame's ids [offset, offset + {frag_span(cfg)}) must stay "
@@ -240,16 +242,32 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps,
                      giant_capacity=cfg.giant_capacity)
     passes = []  # name, tc, capacity, setup out, raster stats, frag offset, carried depth/vis, alpha_test
-    mark = stage_marker(stages)
 
-    def render_pass(name, tc, capacity, frag_offset, depth, vis, pair_capacity, alpha_test=False):
-        st = setup.setup_compact(tc, scene, params, cfg.width, cfg.height, capacity)
+    def render_pass(name, tc, capacity, frag_offset, carry, pair_capacity, alpha_test=False):
+        """Setup and raster of one pass onto `carry` = (depth, vis), None:
+        cleared buffers.  The early pass spans its setup apart."""
+        label = {"early": "early emit+sort+raster", "glass": "layer setup+raster"}.get(name, "late setup+raster")
+
+        def set_up():
+            return setup.setup_compact(tc, scene, params, cfg.width, cfg.height, capacity)
+
+        def rasterize(st):
+            return raster_tile.rasterize_tiles(st, *carry, pair_capacity=pair_capacity, frag_offset=frag_offset,
+                                               alpha_test=alpha_test, **raster_kw)
+
         if name == "early":
-            mark("early setup")
-        out_depth, out_vis, rst = raster_tile.rasterize_tiles(
-            st, depth, vis, pair_capacity=pair_capacity, frag_offset=frag_offset, alpha_test=alpha_test, **raster_kw)
-        mark({"early": "early emit+sort+raster", "glass": "layer setup+raster"}.get(name, "late setup+raster"))
-        passes.append(dict(name=name, tc=tc, cap=capacity, st=st, rst=rst, off=frag_offset, carry=(depth, vis),
+            with span(stages, "early setup"):
+                carry = carry or clear()
+                st = set_up()
+            with span(stages, label):
+                out_depth, out_vis, rst = rasterize(st)
+        else:
+            with span(stages, label):
+                carry = carry or clear()
+                st = set_up()
+                out_depth, out_vis, rst = rasterize(st)
+        raster_tile.count_pairs(stages, name, rst)
+        passes.append(dict(name=name, tc=tc, cap=capacity, st=st, rst=rst, off=frag_offset, carry=carry,
                            alpha=alpha_test))
         return out_depth, out_vis
 
@@ -261,19 +279,18 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     # pass (occlusion_two_pass=False) nothing would ever turn visible, so it
     # renders every draw and cluster the cull passes (frame.py:281-290):
     # all-ones draw visibility and visibility words (u32 words in int64)
-    if cfg.occlusion_two_pass:
-        early_dvb, early_words = state.draw_vis, state.vis_words
-    else:
-        early_dvb, early_words = torch.ones_like(state.draw_vis), torch.full_like(state.vis_words, 0xFFFFFFFF)
-    empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
-    emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
-    mark("early draw cull")
-    ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
-        scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
-    mark("early cluster cull")
-    depth, vis = render_pass("early", tc_e, cfg.tri_capacity, frag_offset, *clear(), cfg.pair_capacity)
+    with span(stages, "early draw cull"):
+        if cfg.occlusion_two_pass:
+            early_dvb, early_words = state.draw_vis, state.vis_words
+        else:
+            early_dvb, early_words = torch.ones_like(state.draw_vis), torch.full_like(state.vis_words, 0xFFFFFFFF)
+        empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
+        emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
+    with span(stages, "early cluster cull"):
+        ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
+            scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
+    depth, vis = render_pass("early", tc_e, cfg.tri_capacity, frag_offset, None, cfg.pair_capacity)
 
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
     layer_depth = layer_vis = None
     if cfg.occlusion_two_pass:
         # late pass: newly visible draws and clusters (and every visible draw
@@ -282,72 +299,75 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         # fragment offset tri_capacity + g * late_tri_capacity (frame.py:389).
         # The transmission group (2,) rasterizes into its own cleared layer
         # and never touches the opaque depth/vis (frame.py:390-405)
-        atlas = pyramid.build_pyramid(depth, levels, ph, pw)
-        mark("pyramid")
-        emit_l, lod_l, new_draw_vis = cull.draw_cull(
-            scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
-        groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
-            scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
-        mark("late cull")
+        with span(stages, "pyramid"):
+            atlas = pyramid.build_pyramid(depth, levels, ph, pw)
+        with span(stages, "late cull"):
+            emit_l, lod_l, new_draw_vis = cull.draw_cull(
+                scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
+            groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
+                scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
         for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
             off = frag_offset + cfg.tri_capacity + g * cfg.late_tri_cap
             if group == (2,):
-                layer_depth, layer_vis = render_pass("glass", tc, cfg.late_tri_cap, off, *clear(), cfg.late_pair_cap)
+                layer_depth, layer_vis = render_pass("glass", tc, cfg.late_tri_cap, off, None, cfg.late_pair_cap)
             else:
-                depth, vis = render_pass("late", tc, cfg.late_tri_cap, off, depth, vis, cfg.late_pair_cap,
+                depth, vis = render_pass("late", tc, cfg.late_tri_cap, off, (depth, vis), cfg.late_pair_cap,
                                          alpha_test=1 in group)
-        new_state = FrameState(draw_vis=new_draw_vis.to(torch.int32), vis_words=new_words)
-        ccount_l = sum((c for _, c in groups_l), zero)
-        visible_draws = new_draw_vis.sum()
-    else:
-        # the carried state stays meaningful without a late pass (frame.py:561-581)
-        new_state = FrameState(draw_vis=vis_e.to(torch.int32), vis_words=state.vis_words)
-        ncmd_l = ccount_l = ddrop_l = cdrop_l = n_cand = zero
-        visible_draws = emit_e.sum()
-
-    main = [p for p in passes if p["name"] != "glass"]
-    streams = [p["rst"]["stream"] for p in main]
-    attrs = raster_tile.shade_tiles(streams, vis)
-    layer = None
-    if layer_vis is not None:
-        glass = passes[-1]["rst"]["stream"]
-        layer = dict(depth=layer_depth, vis=layer_vis, attrs=raster_tile.shade_tiles([glass], layer_vis))
-    if capture is not None:
-        capture.update(
-            passes=[p["name"] for p in passes],
-            setup=[(p["tc"], p["cap"]) for p in passes],
-            setup_out=[p["st"] for p in passes],
-            raster=[(p["rst"]["tile_start"], p["rst"]["pair_tri"], p["st"]["rec"], p["off"], *p["carry"])
-                    for p in passes],
-            raster_alpha_test=tuple(p["alpha"] for p in passes),
-            shade=(streams, vis),
-            cluster_capacity=[cfg.cluster_capacity] + [cfg.late_cluster_cap] * (len(passes) - 1),
-        )
-        if layer is not None:
-            capture["shade_layer"] = ([glass], layer_vis)
-        else:
-            capture.pop("shade_layer", None)
 
     def total(key, where="st"):
         return sum((p[where][key] for p in passes[1:]), passes[0][where][key])
 
-    stats = FrameStats(
-        early_commands=ncmd_e,
-        late_commands=ncmd_l,
-        early_clusters=ccount_e,
-        late_clusters=ccount_l,
-        visible_draws=visible_draws,
-        cmd_dropped=ddrop_e + ddrop_l,
-        cluster_dropped=cdrop_e + cdrop_l,
-        tri_dropped=total("dropped"),
-        pair_dropped=total("dropped", "rst"),
-        pair_drop_vec=total("drop_vec", "rst"),
-        pair_demand_vec=total("demand_vec", "rst"),
-        candidates=n_cand,
-        tri_count=total("count"),
-        pair_count=total("pair_count", "rst"),
-    )
-    mark("shade")
+    with span(stages, "shade"):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        if cfg.occlusion_two_pass:
+            new_state = FrameState(draw_vis=new_draw_vis.to(torch.int32), vis_words=new_words)
+            ccount_l = sum((c for _, c in groups_l), zero)
+            visible_draws = new_draw_vis.sum()
+        else:
+            # the carried state stays meaningful without a late pass (frame.py:561-581)
+            new_state = FrameState(draw_vis=vis_e.to(torch.int32), vis_words=state.vis_words)
+            ncmd_l = ccount_l = ddrop_l = cdrop_l = n_cand = zero
+            visible_draws = emit_e.sum()
+
+        main = [p for p in passes if p["name"] != "glass"]
+        streams = [p["rst"]["stream"] for p in main]
+        attrs = raster_tile.shade_tiles(streams, vis)
+        layer = None
+        if layer_vis is not None:
+            glass = passes[-1]["rst"]["stream"]
+            layer = dict(depth=layer_depth, vis=layer_vis, attrs=raster_tile.shade_tiles([glass], layer_vis))
+        if capture is not None:
+            capture.update(
+                passes=[p["name"] for p in passes],
+                setup=[(p["tc"], p["cap"]) for p in passes],
+                setup_out=[p["st"] for p in passes],
+                raster=[(p["rst"]["tile_start"], p["rst"]["pair_tri"], p["st"]["rec"], p["off"], *p["carry"])
+                        for p in passes],
+                raster_alpha_test=tuple(p["alpha"] for p in passes),
+                shade=(streams, vis),
+                cluster_capacity=[cfg.cluster_capacity] + [cfg.late_cluster_cap] * (len(passes) - 1),
+            )
+            if layer is not None:
+                capture["shade_layer"] = ([glass], layer_vis)
+            else:
+                capture.pop("shade_layer", None)
+
+        stats = FrameStats(
+            early_commands=ncmd_e,
+            late_commands=ncmd_l,
+            early_clusters=ccount_e,
+            late_clusters=ccount_l,
+            visible_draws=visible_draws,
+            cmd_dropped=ddrop_e + ddrop_l,
+            cluster_dropped=cdrop_e + cdrop_l,
+            tri_dropped=total("dropped"),
+            pair_dropped=total("dropped", "rst"),
+            pair_drop_vec=total("drop_vec", "rst"),
+            pair_demand_vec=total("demand_vec", "rst"),
+            candidates=n_cand,
+            tri_count=total("count"),
+            pair_count=total("pair_count", "rst"),
+        )
     return Framebuffer(depth=depth, vis=vis), new_state, stats, attrs, layer
 
 
@@ -382,8 +402,9 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     the shade-time valid mask ("valid"), the shadow term ("shadow", None
     when unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and
     the layer ("layer": its depth, vis and valid mask, or None).
-    `stages` (a utils.profiling.StageTimer the caller has begun) gets
-    frame_core's boundaries, then "G-buffer" and composite_frame's.
+    Its spans (utils.profiling.span) are frame_core's, then "G-buffer"
+    and composite_frame's; `stages` (a StageTimer the caller has begun)
+    gets their boundaries and frame_core's counts.
     Returns (image [H,W,3], fb, new_state, stats)."""
     if sun is not None and bvh is not None:
         raise ValueError("render_frame: give the sun map (`sun`) or the ray-traced BVH (`bvh`), not both")
@@ -392,17 +413,17 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture, stages=stages)
     ivp = shade_params.inverse_view_projection
     transmission = None
-    if layer is not None:
-        g0t, g1t, valid_t = shade.gbuffer_from_attrs(layer["attrs"], layer["vis"] != INVALID_FRAG, scene,
-                                                     textures=textures, depth=layer["depth"],
-                                                     inverse_view_projection=ivp)
-        transmission = (g0t, g1t, layer["depth"], valid_t)
-    g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures, depth=fb.depth,
-                                             inverse_view_projection=ivp)
-    if capture is not None:
-        capture.update(g0=g0, valid=valid,
-                       layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"], valid=valid_t))
-    stage_marker(stages)("G-buffer")
+    with span(stages, "G-buffer"):
+        if layer is not None:
+            g0t, g1t, valid_t = shade.gbuffer_from_attrs(layer["attrs"], layer["vis"] != INVALID_FRAG, scene,
+                                                         textures=textures, depth=layer["depth"],
+                                                         inverse_view_projection=ivp)
+            transmission = (g0t, g1t, layer["depth"], valid_t)
+        g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures,
+                                                 depth=fb.depth, inverse_view_projection=ivp)
+        if capture is not None:
+            capture.update(g0=g0, valid=valid, layer=None if layer is None else dict(
+                depth=layer["depth"], vis=layer["vis"], valid=valid_t))
     image = composite_frame(g0, g1, fb.depth, valid, params, shade_params, cfg, transmission=transmission, sun=sun,
                             bvh=bvh, capture=capture, stages=stages)
     return image, fb, new_state, stats
@@ -416,49 +437,51 @@ def composite_frame(g0, g1, depth, valid, params, shade_params: ShadeParams, cfg
     says which), then the composite, blending `transmission` = (g0t, g1t,
     depth_t, valid_t) when given.  `capture` receives the shadow term
     ("shadow", None when unshadowed) and the ray-traced pass's rays
-    ("trace").  `stages` gets the boundaries "bloom", "sun-map resolve+blur"
-    or shadow_pass's ("rt rays+trace", "rt fill+blur"), and "composite"."""
+    ("trace").  Its spans are "bloom", "sun-map resolve+blur" or
+    shadow_pass's ("rt rays+trace", "rt fill+blur"), and "composite";
+    `stages` gets their boundaries and shadow_pass's count."""
     ivp = shade_params.inverse_view_projection
-    mark = stage_marker(stages)
     bloom_img = None
     if cfg.bloom:
-        bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
-                                               cfg.height)
-        mark("bloom")
+        with span(stages, "bloom"):
+            bloom_img = bloom.sample_bloom_fullres(bloom.compute_bloom(g0, cfg.width, cfg.height), cfg.width,
+                                                   cfg.height)
     shadow = None
     if cfg.shadows and sun is not None:
         sf, packed, map_shape = sun
-        shadow = sunmap.shadow_map_pass(
-            depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
-            height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
-        mark("sun-map resolve+blur")
+        with span(stages, "sun-map resolve+blur"):
+            shadow = sunmap.shadow_map_pass(
+                depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
+                height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
     elif cfg.shadows and bvh is not None:
         shadow = shadow_ops.shadow_pass(
             depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,
             height=cfg.height, scale=cfg.shadow_scale, checkerboard=cfg.shadow_checkerboard, blur=cfg.shadow_blur,
             znear=params.znear, quality=cfg.shadow_quality, capture=capture, stages=stages)
-    if capture is not None:
-        capture["shadow"] = shadow
-    image = shade.composite(
-        g0, g1, depth, valid,
-        camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
-        inverse_view_projection=ivp, width=cfg.width, height=cfg.height,
-        shadow=shadow, bloom=bloom_img, transmission=transmission,
-    )
-    mark("composite")
+    with span(stages, "composite"):
+        if capture is not None:
+            capture["shadow"] = shadow
+        image = shade.composite(
+            g0, g1, depth, valid,
+            camera_position=shade_params.camera_position, sun_direction=shade_params.sun_direction,
+            inverse_view_projection=ivp, width=cfg.width, height=cfg.height,
+            shadow=shadow, bloom=bloom_img, transmission=transmission,
+        )
     return image
 
 
 def make_frame_inputs(camera: Camera, settings: RenderSettings, cfg: FrameConfig, sun_direction=None):
-    """Host-side per-frame constants: (CullParams, ShadeParams) (frame.py:703)."""
-    _, ph, pw = cfg.pyramid_levels_shape
-    params, projection = make_cull_params(camera, cfg.width, cfg.height, pw, ph, settings)
-    inv_vp = np.linalg.inv(projection @ np.asarray(params.view)).astype(np.float32)
-    if sun_direction is None:
-        sun_direction = math3d.normalize(np.array([1.0, 1.0, 1.0], dtype=np.float32))
-    sp = ShadeParams(
-        camera_position=np.asarray(camera.position, dtype=np.float32),
-        sun_direction=np.asarray(sun_direction, dtype=np.float32),
-        inverse_view_projection=inv_vp,
-    )
+    """Host-side per-frame constants: (CullParams, ShadeParams) (frame.py:703),
+    in the span "frame inputs"."""
+    with span(None, "frame inputs"):
+        _, ph, pw = cfg.pyramid_levels_shape
+        params, projection = make_cull_params(camera, cfg.width, cfg.height, pw, ph, settings)
+        inv_vp = np.linalg.inv(projection @ np.asarray(params.view)).astype(np.float32)
+        if sun_direction is None:
+            sun_direction = math3d.normalize(np.array([1.0, 1.0, 1.0], dtype=np.float32))
+        sp = ShadeParams(
+            camera_position=np.asarray(camera.position, dtype=np.float32),
+            sun_direction=np.asarray(sun_direction, dtype=np.float32),
+            inverse_view_projection=inv_vp,
+        )
     return params, sp
