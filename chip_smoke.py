@@ -28,7 +28,9 @@ Phases, each reported on its own line:
                    frames through render_frame (frames 2-4, the steady
                    state): loss-free, finite, every kernel launched as often
                    as the frame calls it; the last frame's inputs are kept;
-  kernels       -- setup, raster and shade replayed on the kept inputs of
+  kernels       -- the cull passes and the pyramid (csrc/cull.cu: draw
+                   stage, cluster stage, both pyramid kernels), setup,
+                   raster and shade replayed on the kept inputs of
                    the transitional frame 1 and the steady frame 4, each
                    against its plain torch version on the same inputs
                    through the package's replay (render/parity.py, the
@@ -350,6 +352,17 @@ def bloom_launches(frames: int, size: tuple[int, int] = FULL) -> dict:
             "bloom_tail": frames if levels - start >= 2 else 0, "bloom_x2": frames}
 
 
+def cull_launches(frames: int, late_groups: int = 1, two_pass: bool = True) -> dict:
+    """cull.cu's launches over `frames` frames: a draw_cull and a
+    cluster_cull a cull pass (the early pass, and the late pass of a
+    two-pass frame), a cluster_order a class group (one early,
+    `late_groups` late) and the two pyramid kernels a two-pass frame."""
+    passes = 2 if two_pass else 1
+    return {"draw_cull": passes * frames, "cluster_cull": passes * frames,
+            "cluster_order": (1 + (late_groups if two_pass else 0)) * frames,
+            "pyramid_base": frames if two_pass else 0, "pyramid_filter": frames if two_pass else 0}
+
+
 def zero_launches() -> None:
     """Every kernel's launch counter (_build.LAUNCHES) to 0."""
     from niagara_tpu_torch import _build
@@ -538,8 +551,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_bench(smi)
 
-    order = ("setup", "setup_alpha", "raster", "raster_alpha", "raster_alpha_window", "shade", "bloom_down",
-             "bloom_up", "bloom_tail", "bloom_x2", "trace", "trace_alpha")
+    order = ("draw_cull", "cluster_cull", "pyramid_base", "setup", "setup_alpha", "raster", "raster_alpha",
+             "raster_alpha_window", "shade", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2", "trace", "trace_alpha")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -587,7 +600,7 @@ def run_bench(smi) -> None:
     check(len(gate) == 1, "the bench printed no kernel parity line")
     held = ast.literal_eval(re.search(r"\((\{.*\})\) in", gate[0]).group(1))
     log("bench", f"the gate held {held}")
-    check(set(held["calls"]) == {"setup", "setup_alpha", "raster", "raster_alpha", "raster_window",
+    check(set(held["calls"]) == {"cull", "pyramid", "setup", "setup_alpha", "raster", "raster_alpha", "raster_window",
                                  "raster_alpha_window", "shade"} and held["bloom_levels"] > 0 and held["rays"] > 0,
           f"the bench's gate did not replay every kernel instance: {held}")
     check(out["loss_free"] is True, "the bench dropped work")
@@ -620,7 +633,7 @@ def run_all(base, city_job, dev, smi) -> dict:
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup=6, raster=6, shade=3, **bloom_launches(3))
+    expected = launch_counts(setup=6, raster=6, shade=3, **bloom_launches(3), **cull_launches(3))
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
@@ -634,7 +647,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     small_reference("rt small", dev, scene.upload(geometry, small_draws), None,
                     frame.FrameConfig(width=256, height=128, shadows=True, **presets.small_capacities()),
                     scene, camera, frame, bvh=shadow.build_scene_rt(geometry, small_draws)[0])
-    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **bloom_launches(1))
+    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **bloom_launches(1), **cull_launches(1))
     rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
                 shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
     kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow, base),
@@ -669,7 +682,8 @@ def run_all(base, city_job, dev, smi) -> dict:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3))
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3),
+                             **cull_launches(3))
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
                     raster_tile)
@@ -686,7 +700,7 @@ def run_all(base, city_job, dev, smi) -> dict:
                                                                     textures=tex)[2], alpha["state"])
     # the alpha frame ray-traced with the quality-1 any-hit through the masks
     per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, trace_alpha=1,
-                              **bloom_launches(1))
+                              **bloom_launches(1), **cull_launches(1))
     rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
                  _build, smi, per_frame, 3, mats=mats, mips=mips, depth=alpha["fb"].depth)
     kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow,
@@ -754,7 +768,8 @@ def run_all(base, city_job, dev, smi) -> dict:
     caps = presets.scene_capacities(sd.geometry, sd.draws)
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **caps)
     log("city scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3))
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3),
+                             **cull_launches(3))
     cam = camera.Camera(position=sd.camera_position, orientation=sd.camera_orientation)
     path = run_path("city ", ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=cam,
                     sun_direction=sd.sun_direction)
@@ -927,7 +942,8 @@ def run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi) -> None:
     per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1)
     runs = {}
     for k in (n, 1):
-        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **bloom_launches(3))
+        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **bloom_launches(3),
+                                 **cull_launches(3 * k))
         runs[k] = mesh_frames(f"mesh {k}-shard", shards[k], mesh.init_sharded_state(shards[k]), cfg, params, sp, tex,
                               sun, expected, smi)
     four, one = runs[n], runs[1]
@@ -1158,7 +1174,8 @@ def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
     caps = presets.headline_capacities(ds.num_draws)
     cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=3, **caps)
     log("glass scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **bloom_launches(3))
+    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **bloom_launches(3),
+                             **cull_launches(3, late_groups=2))
     path = run_path("glass ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     s, steady = path["stats"], path["steady"]
     for name, st, (ts, *_), (tc, cap) in zip(steady["passes"], steady["setup_out"], steady["raster"],
@@ -1229,7 +1246,7 @@ def run_configs(kernels, dev, smi) -> None:
         depth[config] = r["fb"].depth
         n = 1 if config < 2 else 2
         expected = launch_counts(setup=2 * n, raster=2 * n, shade=2,
-                                 **bloom_launches(2))
+                                 **bloom_launches(2), **cull_launches(2, two_pass=n == 2))
         log("configs", f"config {config}: {CONFIG_DRAWS} draws, frame ms (CUDA events) {r['frame_ms']}, "
             f"{secs:.1f} s with the PNGs | {frame_line(s)} covered_px {int((r['fb'].vis != INVALID).sum())} | passes "
             f"{capture['passes']} | launches {launches} (expected {expected}) on {smi}")
@@ -1338,7 +1355,8 @@ def run_obj_cache(dev, smi) -> None:
             f"({t5 - t4:.3f} s) | on the host of {smi}")
 
         frames, (W, H) = 4, FULL
-        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, **bloom_launches(frames, (W, H)))
+        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, **bloom_launches(frames, (W, H)),
+                                 **cull_launches(frames))
         for label in ("cold", "warm"):
             zero_launches()
             t0 = time.perf_counter()
@@ -1403,7 +1421,8 @@ def run_entry(dev, smi) -> None:
     finally:
         frame.render_frame = render_frame
     cfg = frame.FrameConfig(**entry.ENTRY_CONFIG)
-    expected = launch_counts(setup=4, raster=4, shade=2, **bloom_launches(2, (cfg.width, cfg.height)))
+    expected = launch_counts(setup=4, raster=4, shade=2, **bloom_launches(2, (cfg.width, cfg.height)),
+                             **cull_launches(2))
     (ci, cfb, cst, cs), (gi, gfb, gst, gs) = kept["cpu"][-1], kept[str(dev)][-1]
     cs, gs = cs.to_dict(), gs.to_dict()
     image_err = float((ci - gi.cpu()).abs().max())
@@ -1438,7 +1457,8 @@ def run_entry(dev, smi) -> None:
         runs[str(where)] = (out, secs, printed.getvalue().strip())
     (c, _, _), (g, secs, line) = runs["cpu"], runs[str(dev)]
     expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n,
-                             **bloom_launches(1, tuple(entry.DRYRUN_CONFIG[k] for k in ("width", "height"))))
+                             **bloom_launches(1, tuple(entry.DRYRUN_CONFIG[k] for k in ("width", "height"))),
+                             **cull_launches(n))
     cs, gs = c["stats"].to_dict(), g["stats"].to_dict()
     image_err = float((c["image"] - g["image"].cpu()).abs().max())
     log("entry", f"{line} ({secs:.2f} s on the card, the cook a cache hit) | {frame_line(gs)} | against the CPU: "
@@ -1706,6 +1726,13 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
     for c in parity.replay_frame(capture, ds, params, cfg):
         for line in c["lines"]:
             log(f"{tag}kernels", f"{label} {line}")
+        if c["module"] in ("cull", "pyramid"):
+            for name, ms, plain_ms, nbytes in cull_timings(c):
+                r = rows.setdefault(name, dict(ms=0.0, base_ms=None, plain_ms=0.0, bytes=0.0, ops=0.0))
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                r["bytes"] += nbytes
+            continue
         name, mod, args, kw = c["name"], mods[c["module"]], c["args"], c["kwargs"]
         kernel, plain = getattr(mod, c["fn"]), getattr(mod, c["plain"])
         old = (lambda f=getattr(bases[c["module"]], c["fn"]): f(*args, **kw)) if base else None
@@ -1731,7 +1758,11 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
             log(f"{tag}kernels", f"{label} {name} {c['pass_']}: zeroing the whole capacity ({cap} rows) alone takes "
                 f"{zero_ms:.4f} ms")
 
-    sources = dict(setup=("setup.cu", "niagara_tpu/ops/setup_fused.py:190"),
+    cull_src = "none: XLA ops (niagara_tpu/ops/cull.py draw_cull, cluster_cull_direct_multi; ops/raster.py " \
+               "order_clusters_by_x, transform_meta_direct; ops/pyramid.py build_pyramid)"
+    sources = dict(draw_cull=("cull.cu", cull_src), cluster_cull=("cull.cu", cull_src),
+                   pyramid_base=("cull.cu", cull_src),
+                   setup=("setup.cu", "niagara_tpu/ops/setup_fused.py:190"),
                    setup_alpha=("setup.cu", "niagara_tpu/ops/setup_fused.py:166"),
                    raster=("raster.cu", "niagara_tpu/ops/raster_tile.py:280"),
                    raster_alpha=("raster.cu", "niagara_tpu/ops/raster_tile.py:280"),
@@ -1748,6 +1779,45 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
                         max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by,
                         library_ms=None, **({"baseline_ms": r["base_ms"]} if was else {})))
     return out
+
+
+def cull_timings(c: dict) -> list:
+    """A replayed cull pass or pyramid (render/parity.py replay_cull's
+    record) timed against its plain twin on the same inputs: rows (name,
+    kernel ms, plain ms, bytes the work needs).  A cull pass gives
+    "draw_cull" (its draw stage: the zeroed scratch, the write-back's copy
+    of the words and draw_cull_kernel) and "cluster_cull" (its cluster
+    stage: cluster_cull_kernel, each group's sort and cluster_order_kernel);
+    the pyramid gives "pyramid_base" (both of its kernels)."""
+    from niagara_tpu_torch.ops import cull, pyramid
+
+    if c["module"] == "pyramid":
+        depth, levels, ph, pw = c["args"]
+        return [("pyramid_base", cuda_ms(lambda: pyramid.pyramid_cuda(*c["args"]), 10),
+                 cuda_ms(lambda: pyramid.build_pyramid_plain(*c["args"]), 3), 4 * (depth.numel() + levels * ph * pw))]
+    sc, params = c["args"]
+    kw, out = c["kwargs"], c["out"]
+    dkw = {k: kw[k] for k in ("late", "pyramid_shape", "draw_capacity", "candidate_capacity", "num_classes")}
+    ckw = {k: kw[k] for k in ("cluster_capacity", "class_groups")}
+    dargs = (sc, params, kw["draw_vis"], kw["vis_words"], kw["atlas"])
+    draw_ms = cuda_ms(lambda: cull.draw_cull_cuda(*dargs, **dkw), 10)
+    drawn = iter([cull.draw_cull_cuda(*dargs, **dkw) for _ in range(11)])  # a cluster stage takes its own scratch
+    cluster_ms = cuda_ms(lambda: cull.cluster_cull_cuda(sc, params, next(drawn), **ckw), 10)
+    plain_drawn = cull.draw_stage_plain(*dargs, **dkw)
+    plain_draw = cuda_ms(lambda: cull.draw_stage_plain(*dargs, **dkw), 3)
+    plain_cluster = cuda_ms(lambda: cull.cull_clusters(sc, params, plain_drawn, **ckw), 3)
+    # read once: a draw's mesh row, quaternion, scale, position, class,
+    # visibility, offset and one LOD count and offset; written: emit, lod,
+    # new_vis and a listed draw's entry; the write-back copies the words
+    D, nl = sc.num_draws, sc.draw_lod_meshlet_count.shape[1]
+    draw_bytes = D * (4 * (5 + nl) + 16 + 4 + 12 + 4 + 4 + 4 + 8 + 10) + int(out["n_draws"]) * 28
+    if out["new_vis_words"] is not kw["vis_words"]:
+        draw_bytes += 16 * kw["vis_words"].numel()
+    # a candidate's entry, meshlet row, transform row and word; a group's
+    # keys, draws and meshlets written, sorted, and its metadata gathered
+    caps = [tc["mi"].shape[0] for tc in out["groups"]]
+    cluster_bytes = int(out["n_candidates"]) * (24 + 32 + 32 + 8) + sum(cap * (12 + 8 + 4 + 60) for cap in caps)
+    return [("draw_cull", draw_ms, plain_draw, draw_bytes), ("cluster_cull", cluster_ms, plain_cluster, cluster_bytes)]
 
 
 def animate(sc, static_n: int, t: float):
@@ -1926,7 +1996,7 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
     expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3,
-                             **bloom_launches(3))
+                             **bloom_launches(3), **cull_launches(3))
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")
     check(launches == expected, "kernel launch counts")

@@ -30,7 +30,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu")
+SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu", "cull.cu")
+HEADERS = ("lookback.cuh",)  # included by sources: hashed with them
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
@@ -42,16 +43,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # band of tile rows (the row_window variant, the sun map's band update);
 # bloom_down / bloom_up are bloom.cu's large-level filters, bloom_tail its
 # small levels' down and up in one launch, bloom_x2 the expansion; trace /
-# trace_alpha the two instances of trace.cu's BVH walk
+# trace_alpha the two instances of trace.cu's BVH walk; draw_cull /
+# cluster_cull count cull.cu's two kernels of a cull pass, cluster_order its
+# x-ordered metadata gather (one a class group), pyramid_base /
+# pyramid_filter the depth pyramid's two
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
             "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_tail": 0, "bloom_x2": 0,
-            "trace": 0, "trace_alpha": 0}
+            "trace": 0, "trace_alpha": 0, "draw_cull": 0, "cluster_cull": 0, "cluster_order": 0, "pyramid_base": 0,
+            "pyramid_filter": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
 _lib = None
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 SHADE_STREAMS = 4  # kMaxStreams in csrc/shade.cu
@@ -98,6 +103,44 @@ class TailLevels(ctypes.Structure):
                 ("down_off", ctypes.c_int * 8), ("up_off", ctypes.c_int * 8), ("soff", ctypes.c_int * 8)]
 
 
+CULL_TILE = 256  # kTile in csrc/cull.cu: draws or candidate slots a block
+CULL_GROUPS = 4  # kMaxGroups
+CULL_CLASSES = 8  # kMaxClasses
+PYRAMID_LEVELS = 16  # kPyrLevels
+PYRAMID_TILE_LEVELS = 5  # kPyrTile = 32: the halvings a pyramid tile builds
+PYRAMID_TAIL_MAX = 4096  # kTailMax: texels of the largest level below the tiles
+
+
+class CullConsts(ctypes.Structure):
+    """Mirror of `struct CullConsts` in csrc/cull.cu: ops/cull.CullParams."""
+
+    _fields_ = [("view", ctypes.c_float * 12), ("p00", ctypes.c_float), ("p11", ctypes.c_float),
+                ("znear", ctypes.c_float), ("zfar", ctypes.c_float), ("frustum", ctypes.c_float * 4),
+                ("lod_target", ctypes.c_float), ("pyramid_w", ctypes.c_float), ("pyramid_h", ctypes.c_float),
+                ("culling", ctypes.c_int), ("lod", ctypes.c_int), ("occlusion", ctypes.c_int),
+                ("cluster_occlusion", ctypes.c_int), ("cluster_backface", ctypes.c_int), ("post_pass", ctypes.c_int)]
+
+
+class GroupSpec(ctypes.Structure):
+    """Mirror of `struct GroupSpec` in csrc/cull.cu: a cull pass's class
+    groups (capacity, x-order constants, key/draw/meshlet outputs) and the
+    groups of each class."""
+
+    _fields_ = [("n", ctypes.c_int), ("cap", ctypes.c_int * CULL_GROUPS), ("slot_bits", ctypes.c_int * CULL_GROUPS),
+                ("half", ctypes.c_float * CULL_GROUPS), ("hi", ctypes.c_float * CULL_GROUPS),
+                ("key", ctypes.c_void_p * CULL_GROUPS), ("draw", ctypes.c_void_p * CULL_GROUPS),
+                ("mi", ctypes.c_void_p * CULL_GROUPS), ("group_mask", ctypes.c_uint * CULL_CLASSES)]
+
+
+class PyramidPlan(ctypes.Structure):
+    """Mirror of `struct PyramidPlan` in csrc/cull.cu: the levels' sizes,
+    which halve exactly, their nearest-texel tables and where the tiles
+    leave them."""
+
+    _fields_ = [(k, ctypes.c_int) for k in ("levels", "in_h", "in_w", "ph", "pw", "lt")] + [
+        (k, ctypes.c_int * PYRAMID_LEVELS) for k in ("h", "w", "two_x", "ny", "nx", "uoff")]
+
+
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
     # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
@@ -120,6 +163,21 @@ _SIGNATURES = {
     # nodes, n_nodes, tlas_base, tris, n_tris, inst, n_inst, uv, alpha, n_alpha, origin, direction, order
     # (null: id order), n_rays, t_min, t_max, max_steps, alpha_test, blocks, counter, occluded, steps, stream
     "trace_launch": [P, I, I, P, I, P, I, P, P, I, P, P, P, I, F, F, I, I, I, P, P, P, P],
+    # mesh_row, nr, orientation, scale, position, post_pass, draw_vis, lod_count, lod_offset, nl, vis_offset, D,
+    # atlas, atlas_n, atlas_h, atlas_w, consts, late, num_classes, draw_cap, cand_cap, emit, lod, new_vis, bases,
+    # entries, new_words, W, counters, status, ticket, stream
+    "draw_cull_launch": [P, I, P, P, P, P, P, P, P, I, P, I, P, L, I, I, CullConsts, I, I, I, L, P, P, P, P, P, P, L,
+                         P, P, P, P],
+    # bases, entries, lod_offset, cull_row, M, xform, vis_words, W, new_words, atlas, atlas_n, atlas_h, atlas_w,
+    # consts, late, multi, cand_cap, groups, counters, status, ticket, stream
+    "cluster_cull_launch": [P, P, P, P, I, P, P, L, P, P, L, I, I, CullConsts, I, I, I, GroupSpec, P, P, P, P],
+    # sorted, draw, mi, counters, group, cap, slot_bits, tri_count, n_tri, xform, mat, post, out mi, tri, xform,
+    # draw, mat, post, stream
+    "cluster_order_launch": [P, P, P, P, I, I, I, P, I, P, P, P, P, P, P, P, P, P, P],
+    # depth, plan, index, u, stream
+    "pyramid_base_launch": [P, PyramidPlan, P, P, P],
+    # plan, index, u, atlas, stream
+    "pyramid_filter_launch": [PyramidPlan, P, P, P, P],
 }
 
 
@@ -133,7 +191,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kMaxTri = 96;
@@ -54,9 +56,8 @@ constexpr int kRec = 56;
 constexpr int kGroup = 2;                   // clusters per block iteration
 constexpr int kThreads = kGroup * kMaxTri;  // one thread per triangle slot
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kAggregate = 1u << 30;  // status flags: the group's own count ...
-constexpr unsigned kPrefix = 2u << 30;     // ... or its inclusive prefix
-constexpr unsigned kValue = kAggregate - 1u;
+using lookback::kAggregate;
+using lookback::kPrefix;
 
 }  // namespace
 
@@ -194,25 +195,6 @@ __device__ __forceinline__ bool eval_tri(const Corner& A, const Corner& B, const
   return front && !all_behind && on_screen && o.box[2] > o.box[0] && o.box[3] > o.box[1];
 }
 
-// Exclusive prefix of group vb's survivors: warp-wide decoupled look-back
-// over the status words of the groups before it (called by one full warp).
-__device__ __forceinline__ int look_back(const unsigned* status, int vb, int lane) {
-  int excl = 0;
-  for (int j = vb - 1;;) {
-    const int idx = j - lane;
-    const unsigned s = idx >= 0 ? *(const volatile unsigned*)(status + idx) : kPrefix;
-    const unsigned flag = s >> 30;
-    const unsigned pmask = __ballot_sync(0xffffffffu, flag == 2u);
-    const unsigned need = pmask ? (pmask & (0u - pmask)) * 2u - 1u : 0xffffffffu;  // lanes up to the nearest prefix
-    if (__ballot_sync(0xffffffffu, flag == 0u) & need) continue;  // not published yet: read again
-    int v = (need >> lane) & 1u ? (int)(s & kValue) : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    excl += v;
-    if (pmask) return excl;
-    j -= 32;
-  }
-}
-
 template <bool kAlpha>
 __global__ void __launch_bounds__(kThreads) setup_kernel(SetupIn in, int capacity, int n_groups, unsigned* status,
                                                          float* rec_out, int* aabb_out, long long* tri_k,
@@ -295,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(SetupIn in, int capacit
       }
     }
     if (warp == 0) {
-      const int excl = vb == 0 ? 0 : look_back(status, vb, lane);
+      const int excl = vb == 0 ? 0 : lookback::look_back(status, vb, lane);
       if (lane == 0) {
         s_offset = excl;
         if (vb > 0) *(volatile unsigned*)(status + vb) = kPrefix | (unsigned)(excl + agg);
@@ -321,11 +303,7 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(SetupIn in, int capacit
 
   // rows past the count: zero, once the last live group has its prefix
   if (tid == 0) {
-    unsigned s = kPrefix;  // no live group: the count is 0
-    if (n_live > 0)
-      do s = *(const volatile unsigned*)(status + n_live - 1);
-      while ((s >> 30) != 2u);
-    s_total = (int)(s & kValue);
+    s_total = n_live > 0 ? lookback::wait_prefix(status, n_live - 1) : 0;  // no live group: the count is 0
     if (blockIdx.x == 0) {
       counts[0] = min(s_total, capacity);       // count
       counts[1] = max(s_total - capacity, 0);  // dropped

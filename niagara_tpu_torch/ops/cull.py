@@ -9,6 +9,14 @@ the survivors into class groups; `cluster_cull_direct` (:367) is its
 single-class form.  `build_task_commands` (:158) is the legacy command
 builder (64-meshlet task commands), which only the sun map still uses.
 
+A frame's cull pass goes through `cull_draws` then `cull_clusters`: on
+CPU tensors those are draw_cull, cluster_cull_direct_multi and each
+group's raster.order_clusters_by_x + transform_meta_direct (the plain
+twin, `cull_pass_plain` as one call); on CUDA tensors csrc/cull.cu's
+draw_cull_kernel, cluster_cull_kernel, one torch.sort and one
+cluster_order_kernel a class group (`cull_pass_cuda`), every output equal
+bit for bit.
+
 Visibility words are u32 values held in int64 (PyTorch's uint32 has few
 ops); compacted lists keep the reference's prefix order.
 """
@@ -20,8 +28,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import TASK_WGSIZE
-from . import compact, cullmath
+from . import compact, cullmath, raster
 
 
 @dataclass
@@ -295,3 +304,260 @@ def cluster_cull_direct_multi(scene, params: CullParams, emit, lod_index, draw_v
         per_group.append((draw_id[idx], mi[idx], k_count))
         cluster_dropped = cluster_dropped + over
     return per_group, new_vis_words, n_draws, draw_dropped, cluster_dropped, mcount.sum()
+
+
+@dataclass
+class DrawList:
+    """One cull pass's draw stage (`cull_draws`): `emit`, `lod` and
+    `new_vis` [D] as draw_cull returns them, the pass's inputs for its
+    cluster stage, and on the kernel route (`kernel`, else None) the
+    compacted draws, the counters and the write-back's words."""
+
+    emit: torch.Tensor
+    lod: torch.Tensor
+    new_vis: torch.Tensor
+    inputs: dict
+    kernel: dict | None = None
+
+
+def cull_draws(scene, params: CullParams, draw_vis, vis_words, atlas, *, late: bool, pyramid_shape,
+               draw_capacity: int, candidate_capacity: int, num_classes: int | None = None) -> DrawList:
+    """A cull pass's draw stage: draw_cull (num_classes as there; the
+    early pass passes no atlas) on CPU tensors, draw_cull_cuda on CUDA
+    tensors.  `vis_words` and the capacities are the cluster stage's."""
+    stage = draw_stage_plain if draw_vis.device.type == "cpu" else draw_cull_cuda
+    return stage(scene, params, draw_vis, vis_words, atlas, late=late, pyramid_shape=pyramid_shape,
+                 draw_capacity=draw_capacity, candidate_capacity=candidate_capacity, num_classes=num_classes)
+
+
+def draw_stage_plain(scene, params: CullParams, draw_vis, vis_words, atlas, **kw) -> DrawList:
+    """cull_draws in plain torch on any device (draw_cull_cuda's twin)."""
+    return DrawList(*draw_cull(scene, params, draw_vis, atlas, late=kw["late"], pyramid_shape=kw["pyramid_shape"],
+                               num_classes=kw["num_classes"]),
+                    dict(kw, draw_vis=draw_vis, vis_words=vis_words, atlas=atlas))
+
+
+def cull_clusters(scene, params: CullParams, drawn: DrawList, *, cluster_capacity, class_groups: tuple | None = None):
+    """A cull pass's cluster stage on `drawn`: the clusters of the emitted
+    draws culled (merged over the draw stage's classes when it had more
+    than one), the survivors of each class group in screen-x order with
+    their setup metadata.  Returns ([(tc, count)] a group: tc
+    raster.transform_meta_direct's dict, count 0-d int64), new_vis_words,
+    n_draws, draw_dropped, cluster_dropped, n_candidates -- the counts of
+    cluster_cull_direct_multi."""
+    if drawn.kernel is not None:
+        return cluster_cull_cuda(scene, params, drawn, cluster_capacity=cluster_capacity, class_groups=class_groups)
+    i = drawn.inputs
+    groups, *rest = cluster_cull_direct_multi(
+        scene, params, drawn.emit, drawn.lod, i["draw_vis"], i["vis_words"], i["atlas"], late=i["late"],
+        pyramid_shape=i["pyramid_shape"], draw_capacity=i["draw_capacity"], cluster_capacity=cluster_capacity,
+        candidate_capacity=i["candidate_capacity"], num_classes=i["num_classes"] or 1, class_groups=class_groups)
+    out = []
+    for cdraw, cmi, ccount in groups:
+        cdraw, cmi = raster.order_clusters_by_x(scene, params, cdraw, cmi, ccount)
+        out.append((raster.transform_meta_direct(scene, cdraw, cmi, ccount), ccount))
+    return (out, *rest)
+
+
+def _pass(draws, clusters, scene, params, draw_vis, vis_words, atlas, *, late, pyramid_shape, draw_capacity,
+          candidate_capacity, cluster_capacity, num_classes=None, class_groups=None) -> dict:
+    drawn = draws(scene, params, draw_vis, vis_words, atlas, late=late, pyramid_shape=pyramid_shape,
+                  draw_capacity=draw_capacity, candidate_capacity=candidate_capacity, num_classes=num_classes)
+    groups, new_words, n_draws, ddrop, cdrop, n_cand = clusters(scene, params, drawn, cluster_capacity=cluster_capacity,
+                                                                class_groups=class_groups)
+    return dict(emit=drawn.emit, lod=drawn.lod, new_vis=drawn.new_vis, groups=[tc for tc, _ in groups],
+                counts=[c for _, c in groups], new_vis_words=new_words, n_draws=n_draws, draw_dropped=ddrop,
+                cluster_dropped=cdrop, n_candidates=n_cand)
+
+
+def cull_pass_plain(scene, params: CullParams, draw_vis, vis_words, atlas, **kw) -> dict:
+    """One cull pass (cull_draws then cull_clusters, their keywords) in
+    plain torch on any device: dict(emit, lod, new_vis, groups (each
+    group's tc), counts, new_vis_words, n_draws, draw_dropped,
+    cluster_dropped, n_candidates).  cull_pass_cuda's plain twin."""
+    return _pass(draw_stage_plain, cull_clusters, scene, params, draw_vis, vis_words, atlas, **kw)
+
+
+def cull_pass_cuda(scene, params: CullParams, draw_vis, vis_words, atlas, **kw) -> dict:
+    """cull_pass_plain through csrc/cull.cu's kernels."""
+    _class_groups(kw.get("num_classes") or 1, kw["cluster_capacity"], kw.get("class_groups"))
+    return _pass(draw_cull_cuda, cluster_cull_cuda, scene, params, draw_vis, vis_words, atlas, **kw)
+
+
+def _expect(t, dtype, shape: tuple, what: str) -> None:
+    """Raise unless `t` has `dtype` and `shape` (None: any size there);
+    the device is checked after."""
+    if t.dtype != dtype or t.dim() != len(shape) or any(n is not None and n != m for n, m in zip(shape, t.shape)):
+        raise ValueError(f"{what}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _consts(params: CullParams) -> _build.CullConsts:
+    v = params.view
+    c = _build.CullConsts(p00=params.p00, p11=params.p11, znear=params.znear, zfar=params.zfar,
+                          lod_target=params.lod_target, pyramid_w=params.pyramid_w, pyramid_h=params.pyramid_h,
+                          culling=int(params.culling_enabled), lod=int(params.lod_enabled),
+                          occlusion=int(params.occlusion_enabled),
+                          cluster_occlusion=int(params.cluster_occlusion_enabled),
+                          cluster_backface=int(params.cluster_backface_enabled), post_pass=int(params.post_pass))
+    c.view[:] = [float(v[i, j]) for i in range(3) for j in range(4)]
+    c.frustum[:] = [float(x) for x in params.frustum]
+    return c
+
+
+def _atlas_args(atlas, pyramid_shape, needed: bool):
+    """(pointer, elements, base height, base width) of the atlas a late
+    pass reads; nothing when the pass reads none."""
+    if not needed:
+        return None, 0, 0, 0
+    _build.expect(atlas, torch.float32, tuple(pyramid_shape), "cull atlas")
+    atlas = atlas.contiguous()
+    return atlas.data_ptr(), atlas.numel(), int(pyramid_shape[0]), int(pyramid_shape[1])
+
+
+_MAX_COUNT = (1 << 30) - 1  # the look-back's 30-bit counts
+
+
+def _class_groups(num_classes: int, cluster_capacity, class_groups):
+    """(class groups, a capacity each) as cluster_cull_direct_multi reads
+    them; ValueError where the kernel cannot take them."""
+    if class_groups is None:
+        class_groups = tuple((c,) for c in range(num_classes))
+    caps = (cluster_capacity,) * len(class_groups) if isinstance(cluster_capacity, int) else tuple(cluster_capacity)
+    if not 1 <= len(class_groups) <= _build.CULL_GROUPS or len(caps) != len(class_groups):
+        raise ValueError(f"cluster_cull: {len(class_groups)} class groups, {len(caps)} capacities (1 to "
+                         f"{_build.CULL_GROUPS} groups, one capacity each)")
+    if any(not 0 <= c < _build.CULL_CLASSES for g in class_groups for c in g):
+        raise ValueError(f"cluster_cull: class groups {class_groups} (classes 0 to {_build.CULL_CLASSES - 1})")
+    if any(not 1 <= cap <= _MAX_COUNT for cap in caps):
+        raise ValueError(f"cluster_cull: cluster capacities {caps} must lie in [1, 2^30)")
+    return class_groups, caps
+
+
+def draw_cull_cuda(scene, params: CullParams, draw_vis, vis_words, atlas, *, late: bool, pyramid_shape,
+                   draw_capacity: int, candidate_capacity: int, num_classes: int | None = None) -> DrawList:
+    """csrc/cull.cu's draw_cull_kernel: draw_cull's emit, lod and new_vis,
+    and for cluster_cull_cuda the emitted draws compacted in id order with
+    their candidate prefix, the counters (n_draws, draw_dropped,
+    n_candidates), and with the late write-back a copy of the words with
+    every touched 64-slot pair cleared."""
+    D = scene.num_draws
+    if not 1 <= draw_capacity <= _MAX_COUNT or not 1 <= candidate_capacity <= _MAX_COUNT:
+        raise ValueError(f"draw_cull: capacities {draw_capacity} / {candidate_capacity} must lie in [1, 2^30)")
+    if not 1 <= D < 1 << 26:
+        raise ValueError(f"draw_cull: {D} draws (the kernel's counts take 1 to 2^26 - 1)")
+    if num_classes is not None and not (late and 1 <= num_classes <= _build.CULL_CLASSES):
+        raise ValueError(f"draw_cull: num_classes {num_classes} (a late pass's, 1 to {_build.CULL_CLASSES})")
+    _expect(draw_vis, torch.int32, (D,), "draw_cull draw_vis")
+    _expect(vis_words, torch.int64, (None,), "draw_cull vis_words")
+    _build.require_cuda(draw_vis, "draw_cull")
+    vis_words = vis_words.contiguous()
+    nl = scene.draw_lod_meshlet_count.shape[1]
+    mesh_row = scene.draw_mesh_row.contiguous()
+    _build.expect(mesh_row, torch.float32, (D, 5 + nl), "draw_mesh_row")
+    fields = [(scene.draw_orientation, torch.float32, (D, 4)), (scene.draw_scale, torch.float32, (D,)),
+              (scene.draw_position, torch.float32, (D, 3)), (scene.draw_post_pass, torch.int32, (D,)),
+              (draw_vis, torch.int32, (D,)), (scene.draw_lod_meshlet_count, torch.int32, (D, nl)),
+              (scene.draw_lod_meshlet_offset, torch.int32, (D, nl)), (scene.draw_vis_offset, torch.int32, (D,))]
+    ts = []
+    for t, dtype, shape in fields:
+        _build.expect(t, dtype, shape, "draw_cull input")
+        ts.append(t.contiguous())
+    orient, scale, pos, post, dvb, lod_count, lod_offset, visoff = ts
+    write_back = late and params.cluster_occlusion_enabled == 1
+    atlas_args = _atlas_args(atlas, pyramid_shape, late and (bool(params.occlusion_enabled) or write_back))
+    dev = draw_vis.device
+    n_tiles = -(-D // _build.CULL_TILE)
+    n_cluster_tiles = -(-candidate_capacity // _build.CULL_TILE)
+    # one zeroed buffer: 10 counters, the draw tiles' status, the two
+    # kernels' tickets, the cluster tiles' status (u32, CULL_GROUPS a tile)
+    scratch = torch.zeros(12 + n_tiles + -(-_build.CULL_GROUPS * n_cluster_tiles // 2), dtype=torch.int64, device=dev)
+    emit = torch.empty(D, dtype=torch.bool, device=dev)
+    lod = torch.empty(D, dtype=torch.int64, device=dev)
+    new_vis = torch.empty(D, dtype=torch.bool, device=dev)
+    bases = torch.empty(draw_capacity, dtype=torch.int32, device=dev)
+    entries = torch.empty((draw_capacity, 6), dtype=torch.int32, device=dev)
+    new_words = vis_words.clone() if write_back else vis_words
+    sp = scratch.data_ptr()
+    rc = _build.lib().draw_cull_launch(
+        mesh_row.data_ptr(), mesh_row.shape[1], orient.data_ptr(), scale.data_ptr(), pos.data_ptr(),
+        post.data_ptr(), dvb.data_ptr(), lod_count.data_ptr(), lod_offset.data_ptr(), nl, visoff.data_ptr(), D,
+        *atlas_args, _consts(params), int(late), num_classes or 0, draw_capacity, candidate_capacity,
+        emit.data_ptr(), lod.data_ptr(), new_vis.data_ptr(), bases.data_ptr(), entries.data_ptr(),
+        new_words.data_ptr() if write_back else None, vis_words.shape[0], sp, sp + 8 * 10, sp + 8 * (10 + n_tiles),
+        _build.stream_ptr(draw_vis))
+    _build.LAUNCHES["draw_cull"] += 1
+    _build.check(rc, "draw_cull")
+    inputs = dict(draw_vis=draw_vis, vis_words=vis_words, atlas=atlas, late=late, pyramid_shape=pyramid_shape,
+                  draw_capacity=draw_capacity, candidate_capacity=candidate_capacity, num_classes=num_classes)
+    kernel = dict(scratch=scratch, bases=bases, entries=entries, new_words=new_words, write_back=write_back,
+                  atlas_args=atlas_args, lod_offset=lod_offset, n_tiles=n_tiles, n_cluster_tiles=n_cluster_tiles)
+    return DrawList(emit, lod, new_vis, inputs, kernel)
+
+
+def cluster_cull_cuda(scene, params: CullParams, drawn: DrawList, *, cluster_capacity,
+                      class_groups: tuple | None = None):
+    """csrc/cull.cu's cluster_cull_kernel on draw_cull_cuda's compacted
+    draws, then per class group torch.sort of its x-order keys and
+    cluster_order_kernel: cull_clusters' contract."""
+    if drawn.kernel is None:
+        raise ValueError("cluster_cull_cuda: the draw stage did not run on the kernel route")
+    i, k = drawn.inputs, drawn.kernel
+    num_classes = i["num_classes"] or 1
+    class_groups, caps = _class_groups(num_classes, cluster_capacity, class_groups)
+    _build.require_cuda(scene.draw_xform_row, "cluster_cull")
+    M, D = scene.meshlet_cull_row.shape[0], scene.num_draws
+    xform = scene.draw_xform_row.contiguous()
+    _build.expect(scene.meshlet_cull_row, torch.float32, (M, 8), "meshlet_cull_row")
+    _build.expect(xform, torch.float32, (D, 8), "draw_xform_row")
+    if xform.data_ptr() % 16:  # rows are copied with 16-byte loads
+        xform = xform.clone()
+    cull_row = scene.meshlet_cull_row.contiguous()
+    dev = xform.device
+    sp = k["scratch"].data_ptr()
+    counters = k["scratch"][:10]
+    gs = _build.GroupSpec(n=len(class_groups))
+    keys, draws, mis = [], [], []
+    for g, (group, cap) in enumerate(zip(class_groups, caps)):
+        slot_bits = max(cap - 1, 1).bit_length()
+        half = float(1 << (31 - slot_bits - 1))
+        keys.append(torch.empty(cap, dtype=torch.int32, device=dev))
+        draws.append(torch.empty(cap, dtype=torch.int32, device=dev))
+        mis.append(torch.empty(cap, dtype=torch.int32, device=dev))
+        gs.cap[g], gs.slot_bits[g], gs.half[g], gs.hi[g] = cap, slot_bits, half, 2.0 * half - 1.0
+        gs.key[g], gs.draw[g], gs.mi[g] = keys[g].data_ptr(), draws[g].data_ptr(), mis[g].data_ptr()
+        for c in group:
+            gs.group_mask[c] |= 1 << g
+    words = i["vis_words"]
+    rc = _build.lib().cluster_cull_launch(
+        k["bases"].data_ptr(), k["entries"].data_ptr(), k["lod_offset"].data_ptr(), cull_row.data_ptr(), M,
+        xform.data_ptr(), words.data_ptr(), words.shape[0],
+        k["new_words"].data_ptr() if k["write_back"] else None, *k["atlas_args"], _consts(params), int(i["late"]),
+        int(num_classes > 1), i["candidate_capacity"], gs, sp, sp + 8 * (12 + k["n_tiles"]),
+        sp + 8 * (11 + k["n_tiles"]), _build.stream_ptr(xform))
+    _build.LAUNCHES["cluster_cull"] += 1
+    _build.check(rc, "cluster_cull")
+
+    tri_count, mat, post = scene.meshlet_triangle_count, scene.draw_material_index, scene.draw_post_pass
+    for t, what in ((tri_count, "meshlet_triangle_count"), (mat, "draw_material_index"), (post, "draw_post_pass")):
+        _build.expect(t, torch.int32, (t.shape[0],), what)
+    groups = []
+    for g, cap in enumerate(caps):
+        ordered = torch.sort(keys[g]).values
+        out = dict(mi=torch.empty(cap, dtype=torch.int64, device=dev),
+                   tri_count=torch.empty(cap, dtype=torch.int32, device=dev),
+                   xform=torch.empty((cap, 8), dtype=torch.float32, device=dev),
+                   draw_id=torch.empty(cap, dtype=torch.int64, device=dev),
+                   mat_index=torch.empty(cap, dtype=torch.int32, device=dev),
+                   post_pass=torch.empty(cap, dtype=torch.int32, device=dev))
+        rc = _build.lib().cluster_order_launch(
+            ordered.data_ptr(), draws[g].data_ptr(), mis[g].data_ptr(), sp, g, cap, gs.slot_bits[g],
+            tri_count.contiguous().data_ptr(), tri_count.shape[0], xform.data_ptr(), mat.contiguous().data_ptr(),
+            post.contiguous().data_ptr(), *(t.data_ptr() for t in out.values()), _build.stream_ptr(xform))
+        _build.LAUNCHES["cluster_order"] += 1
+        _build.check(rc, "cluster_order")
+        count = counters[4 + g]
+        out["count"] = count.reshape(1)
+        if scene.has_alpha_masks:
+            out["alpha"] = scene.meshlet_alpha
+        groups.append((out, count))
+    return groups, k["new_words"], counters[0], counters[1], counters[3], counters[2]

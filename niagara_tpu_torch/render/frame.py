@@ -3,9 +3,10 @@
 early draw cull (class 0) -> early cluster cull -> x-order -> setup ->
 raster -> depth pyramid -> late draw cull (every class, merged) -> late
 cluster cull (+ visibility write-back) -> late setup -> raster -> shade
-(both streams) -> G-buffer -> composite.  Setup, raster and shade run the
-CUDA kernels on a GPU and their plain torch versions on the CPU; nothing
-reads counts back to the host inside a frame.
+(both streams) -> G-buffer -> composite.  The cull passes, the pyramid,
+setup, raster and shade run the CUDA kernels on a GPU and their plain
+torch versions on the CPU; nothing reads counts back to the host inside a
+frame.
 
 `post_passes=1` renders the opaque class; `post_passes=2` adds the
 alpha-test class (postPass 1), which the late pass culls together with
@@ -40,7 +41,7 @@ from ..config import TILE_H, TILE_W
 from ..utils import math3d
 from ..utils.profiling import span
 
-from ..ops import bloom, cull, pyramid, raster, raster_tile, setup, shade, shadow as shadow_ops, sunmap
+from ..ops import bloom, cull, pyramid, raster_tile, setup, shade, shadow as shadow_ops, sunmap
 from ..ops.raster import INVALID_FRAG, Framebuffer
 from .camera import Camera, RenderSettings, make_cull_params
 
@@ -179,26 +180,6 @@ def state_to_numpy(state: FrameState) -> tuple[np.ndarray, np.ndarray]:
     return state.draw_vis.cpu().numpy(), state.vis_words.cpu().numpy().astype(np.uint32)
 
 
-def _cluster_pass(scene, params, emit, lod, dvb, words, atlas, cfg, *, late, pyr_hw):
-    """Cluster cull + screen-x order + setup metadata for one pass; the late
-    pass culls every class of the frame together and splits the survivors
-    into the class groups of `cfg.late_class_groups`.  Returns ([(tc,
-    cluster count)] one per group, new words, emitted draws, draw drops,
-    cluster drops, candidates)."""
-    groups, new_words, n_draws, ddrop, cdrop, n_cand = cull.cluster_cull_direct_multi(
-        scene, params, emit, lod, dvb, words, atlas, late=late, pyramid_shape=pyr_hw,
-        draw_capacity=cfg.cmd_capacity,
-        cluster_capacity=cfg.late_cluster_cap if late else cfg.cluster_capacity,
-        candidate_capacity=cfg.late_candidate_cap if late else cfg.candidate_cap,
-        num_classes=cfg.post_passes if late else 1, class_groups=cfg.late_class_groups if late else None,
-    )
-    out = []
-    for cdraw, cmi, ccount in groups:
-        cdraw, cmi = raster.order_clusters_by_x(scene, params, cdraw, cmi, ccount)
-        out.append((raster.transform_meta_direct(scene, cdraw, cmi, ccount), ccount))
-    return out, new_words, n_draws, ddrop, cdrop, n_cand
-
-
 def frag_span(cfg: FrameConfig) -> int:
     """Fragment ids one frame_core call uses: the early pass's
     [0, tri_capacity), then one late_tri_capacity block per late group."""
@@ -217,7 +198,9 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     A `capture` dict receives the inputs of every kernel call (chip_smoke.py
     replays them against the plain versions), in pass order ("passes":
     "early", then "late" for each opaque/alpha group and "glass" for the
-    transmission group): "setup" [(tc, capacity)], "setup_out", "raster"
+    transmission group): "cull" [(pass, cull_pass_* keywords)] of each
+    cull pass ("early", "late"), "pyramid" (depth, levels, ph, pw) or None
+    without the late pass, "setup" [(tc, capacity)], "setup_out", "raster"
     [(tile_start, pair_tri, rec, frag offset, depth, vis) carried in],
     "raster_alpha_test", "shade" (streams, vis) and, with the layer,
     "shade_layer".
@@ -242,6 +225,19 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     raster_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, class_caps=cfg.pair_class_caps,
                      giant_capacity=cfg.giant_capacity)
     passes = []  # name, tc, capacity, setup out, raster stats, frag offset, carried depth/vis, alpha_test
+    culls = []  # name, the cull pass's inputs
+
+    def cull_pass(name, draw_vis, vis_words, atlas, late):
+        """A cull pass's draw stage; its cluster stage is `clusters()`,
+        which the early pass spans apart."""
+        kw = dict(late=late, pyramid_shape=pyr_hw, draw_capacity=cfg.cmd_capacity,
+                  candidate_capacity=cfg.late_candidate_cap if late else cfg.candidate_cap,
+                  num_classes=cfg.post_passes if late else None)
+        ckw = dict(cluster_capacity=cfg.late_cluster_cap if late else cfg.cluster_capacity,
+                   class_groups=cfg.late_class_groups if late else None)
+        culls.append((name, dict(draw_vis=draw_vis, vis_words=vis_words, atlas=atlas, **kw, **ckw)))
+        drawn = cull.cull_draws(scene, params, draw_vis, vis_words, atlas, **kw)
+        return drawn, lambda: cull.cull_clusters(scene, params, drawn, **ckw)
 
     def render_pass(name, tc, capacity, frag_offset, carry, pair_capacity, alpha_test=False):
         """Setup and raster of one pass onto `carry` = (depth, vis), None:
@@ -284,11 +280,9 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
             early_dvb, early_words = state.draw_vis, state.vis_words
         else:
             early_dvb, early_words = torch.ones_like(state.draw_vis), torch.full_like(state.vis_words, 0xFFFFFFFF)
-        empty_atlas = torch.zeros((levels, ph, pw), dtype=torch.float32, device=dev)
-        emit_e, lod_e, vis_e = cull.draw_cull(scene, params, early_dvb, empty_atlas, late=False, pyramid_shape=pyr_hw)
+        drawn_e, clusters_e = cull_pass("early", early_dvb, early_words, None, False)
     with span(stages, "early cluster cull"):
-        ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = _cluster_pass(
-            scene, params, emit_e, lod_e, early_dvb, early_words, empty_atlas, cfg, late=False, pyr_hw=pyr_hw)
+        ((tc_e, ccount_e),), _, ncmd_e, ddrop_e, cdrop_e, _ = clusters_e()
     depth, vis = render_pass("early", tc_e, cfg.tri_capacity, frag_offset, None, cfg.pair_capacity)
 
     layer_depth = layer_vis = None
@@ -300,12 +294,12 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
         # The transmission group (2,) rasterizes into its own cleared layer
         # and never touches the opaque depth/vis (frame.py:390-405)
         with span(stages, "pyramid"):
-            atlas = pyramid.build_pyramid(depth, levels, ph, pw)
+            pyramid_in = (depth, levels, ph, pw)
+            atlas = pyramid.build_pyramid(*pyramid_in)
         with span(stages, "late cull"):
-            emit_l, lod_l, new_draw_vis = cull.draw_cull(
-                scene, params, state.draw_vis, atlas, late=True, pyramid_shape=pyr_hw, num_classes=cfg.post_passes)
-            groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = _cluster_pass(
-                scene, params, emit_l, lod_l, state.draw_vis, state.vis_words, atlas, cfg, late=True, pyr_hw=pyr_hw)
+            drawn_l, clusters_l = cull_pass("late", state.draw_vis, state.vis_words, atlas, True)
+            new_draw_vis = drawn_l.new_vis
+            groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = clusters_l()
         for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
             off = frag_offset + cfg.tri_capacity + g * cfg.late_tri_cap
             if group == (2,):
@@ -325,9 +319,9 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
             visible_draws = new_draw_vis.sum()
         else:
             # the carried state stays meaningful without a late pass (frame.py:561-581)
-            new_state = FrameState(draw_vis=vis_e.to(torch.int32), vis_words=state.vis_words)
+            new_state = FrameState(draw_vis=drawn_e.new_vis.to(torch.int32), vis_words=state.vis_words)
             ncmd_l = ccount_l = ddrop_l = cdrop_l = n_cand = zero
-            visible_draws = emit_e.sum()
+            visible_draws = drawn_e.emit.sum()
 
         main = [p for p in passes if p["name"] != "glass"]
         streams = [p["rst"]["stream"] for p in main]
@@ -338,6 +332,8 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
             layer = dict(depth=layer_depth, vis=layer_vis, attrs=raster_tile.shade_tiles([glass], layer_vis))
         if capture is not None:
             capture.update(
+                cull=culls,
+                pyramid=pyramid_in if cfg.occlusion_two_pass else None,
                 passes=[p["name"] for p in passes],
                 setup=[(p["tc"], p["cap"]) for p in passes],
                 setup_out=[p["st"] for p in passes],

@@ -8,14 +8,17 @@ CPU tests hold to the reference: this gate replays a frame's kernel calls
 on the card and holds each kernel's output to its plain version's on the
 same inputs, bit for bit.
 
-`replay_frame`, `replay_band` (of `band_args`), `replay_bloom` and
-`replay_trace` are the replays (the end-to-end check chip_smoke.py times and bounds the calls
-they return); `kernel_parity_check` renders the small opaque and alpha
-scenes on the card and runs all four, so every kernel instance is held:
-setup_kernel<false> and <true>, raster_tile<false> and <true> over the
-whole grid and over a band (band_row0), shade_px, the four bloom
-kernels and trace_any_hit<false> and <true>.  Any difference raises
-ParityError on the first output that differs.
+`replay_frame` (with `replay_cull`), `replay_band` (of `band_args`),
+`replay_bloom` and `replay_trace` are the replays (the end-to-end check
+chip_smoke.py times and bounds the calls they return);
+`kernel_parity_check` renders the small opaque and alpha scenes on the
+card and runs all four, so every kernel instance is held: cull.cu's
+draw_cull, cluster_cull and cluster_order kernels on both cull passes
+(with and without the merged classes and the write-back) and its two
+pyramid kernels, setup_kernel<false> and <true>, raster_tile<false> and
+<true> over the whole grid and over a band (band_row0), shade_px, the
+four bloom kernels and trace_any_hit<false> and <true>.  Any difference
+raises ParityError on the first output that differs.
 """
 
 from __future__ import annotations
@@ -60,8 +63,41 @@ def same_bits(a, b, what: str) -> None:
         raise ParityError(f"{what}: {n} of {a.numel()} elements differ" + (f", max |diff| {err:.3e}" if err else ""))
 
 
+def replay_cull(capture: dict, scene, params) -> list[dict]:
+    """Every cull pass of a frame captured by frame_core (`capture["cull"]`)
+    through csrc/cull.cu's kernels (ops/cull.py cull_pass_cuda) against the
+    plain twin (cull_pass_plain) on the same inputs, and the late pass's
+    depth pyramid (`capture["pyramid"]`, pyramid_cuda against
+    build_pyramid_plain): emit, lod, new_vis, each class group's x-ordered
+    setup metadata and count, the visibility words and the counts, and the
+    atlas, bit for bit.  Returns records in replay_frame's form ("cull" of
+    module "cull", "pyramid" of module "pyramid")."""
+    from ..ops import cull, pyramid
+
+    calls = []
+    for pass_, kw in capture["cull"]:
+        k_out, p_out = cull.cull_pass_cuda(scene, params, **kw), cull.cull_pass_plain(scene, params, **kw)
+        same_bits(k_out, p_out, f"cull {pass_}")
+        counts = "/".join(str(int(c)) for c in k_out["counts"])
+        calls.append(dict(name="cull", pass_=pass_, module="cull", fn="cull_pass_cuda", plain="cull_pass_plain",
+                          args=(scene, params), kwargs=kw, out=k_out,
+                          lines=[f"cull {pass_}: {int(k_out['emit'].sum())} draws emitted, {int(k_out['n_draws'])} "
+                                 f"listed ({int(k_out['draw_dropped'])} dropped), {int(k_out['n_candidates'])} "
+                                 f"candidates -> {counts} clusters ({int(k_out['cluster_dropped'])} over capacity), "
+                                 "bit for bit (max_abs_err 0.0)"]))
+    if capture.get("pyramid") is not None:
+        args = capture["pyramid"]
+        k_out = pyramid.pyramid_cuda(*args)
+        same_bits(k_out, pyramid.build_pyramid_plain(*args), "pyramid")
+        calls.append(dict(name="pyramid", pass_="late", module="pyramid", fn="pyramid_cuda",
+                          plain="build_pyramid_plain", args=args, kwargs={}, out=k_out,
+                          lines=[f"pyramid: {tuple(args[0].shape)} depth -> {tuple(k_out.shape)} atlas, bit for bit "
+                                 "(max_abs_err 0.0)"]))
+    return calls
+
+
 def replay_frame(capture: dict, scene, params, cfg) -> list[dict]:
-    """Every setup, raster and shade call of a frame captured by
+    """Every cull (replay_cull), setup, raster and shade call of a frame captured by
     frame_core (`capture`), replayed: the kernel wrapper against its plain
     version on the same inputs, each output bit for bit.  Raster calls are
     also replayed as a tie merge (the pass's records onto its own result
@@ -69,14 +105,15 @@ def replay_frame(capture: dict, scene, params, cfg) -> list[dict]:
     smaller id, giving the result again) and, for the alpha_test variant
     on a pass with masked records, with seeded random mask bits (which
     must discard pixels).  Returns one record per call, in call order:
-    kernel name, pass, wrapper module and function ("setup"/"raster_tile",
-    "setup_cuda"/"raster_cuda"/"shade_cuda", with `plain` the plain
+    kernel name, pass, wrapper module and function ("cull"/"pyramid"/
+    "setup"/"raster_tile", "cull_pass_cuda"/"pyramid_cuda"/"setup_cuda"/
+    "raster_cuda"/"shade_cuda", with `plain` the plain
     version's name), `args` and `kwargs` of the call, the kernel's output
     (`out`) and lines describing what was held (`lines`)."""
     from ..ops import raster_tile, setup
 
     W, H, tiles_x = cfg.width, cfg.height, cfg.width // TILE_W
-    calls = []
+    calls = replay_cull(capture, scene, params)
     for pass_, (tc, cap) in zip(capture["passes"], capture["setup"]):
         name = "setup_alpha" if "alpha" in tc else "setup"
         args = (tc, scene, params, W, H, cap)

@@ -26,7 +26,8 @@
   pass on the CPU, and a wrapper that flips one bit of one word of its
   output is caught in the replay of its instance: setup (the alpha and
   the opaque frame's), raster (over the grid, and over the band with and
-  without the alpha test), shade, a bloom level, the trace.
+  without the alpha test), shade, a bloom level, the trace, a cull pass
+  (the early and the late pass's) and the pyramid.
 * `python -m niagara_tpu_torch.bench --device cpu` (300 draws, one frame)
   prints one JSON line with bench.py's keys and no "kitten"; with the RT,
   glass, sharded and stage knobs on it adds their keys; without
@@ -54,7 +55,7 @@ from niagara_tpu.ops import sunmap as jsm
 from niagara_tpu.render import frame as jframe
 from niagara_tpu.render.camera import Camera, RenderSettings
 from niagara_tpu_torch import bench, cooker, scene
-from niagara_tpu_torch.ops import bloom, raster_tile, setup, shadow, sunmap
+from niagara_tpu_torch.ops import bloom, cull, pyramid, raster_tile, setup, shadow, sunmap
 from niagara_tpu_torch.render import camera, frame, parity, presets, textures
 from niagara_tpu_torch.utils.profiling import StageTimer, stage_table
 from test_torch_frame import _edge_flips
@@ -312,6 +313,8 @@ def plain_kernels(monkeypatch):
     monkeypatch.setattr(bloom, "tail_cuda", bloom.tail_plain)
     monkeypatch.setattr(bloom, "bilinear_x2_cuda", lambda s, oh, ow: bloom._bilinear_x2(s, oh, ow).permute(1, 2, 0))
     monkeypatch.setattr(shadow, "trace_cuda", _plain_trace())
+    monkeypatch.setattr(cull, "cull_pass_cuda", cull.cull_pass_plain)
+    monkeypatch.setattr(pyramid, "pyramid_cuda", pyramid.build_pyramid_plain)
     return monkeypatch
 
 
@@ -323,8 +326,8 @@ def test_kernel_parity_check_refuses_the_cpu(small):
 def test_gate_replays_pass_with_plain_wrappers(small, plain_kernels):
     out = parity.replay_small_scene(small.g, "cpu")
     assert out["setup_records_live"] > 0 and out["covered_px"] > 100
-    assert out["calls"] == {"setup": 2, "raster": 3, "shade": 2, "setup_alpha": 2, "raster_alpha": 1,
-                            "raster_window": 1, "raster_alpha_window": 1}
+    assert out["calls"] == {"cull": 4, "pyramid": 2, "setup": 2, "raster": 3, "shade": 2, "setup_alpha": 2,
+                            "raster_alpha": 1, "raster_window": 1, "raster_alpha_window": 1}
     assert out["bloom_levels"] == 2 * bloom.bloom_levels(W, H) - 1
     assert 0 < out["occluded_rays"] < out["rays"] == 2 * (W // 2) * (H // 2) // 2
 
@@ -363,6 +366,17 @@ def _flip_raster(band=False, alpha=None):
     return fake
 
 
+def _flip_cull(out, is_late, late=False):
+    """A cull pass's outputs with one bit flipped: the first group's
+    x-ordered draw ids (early pass), or the visibility words (`late`: the
+    late pass's)."""
+    if is_late == late:
+        key = "new_vis_words" if late else "groups"
+        out = dict(out, **{key: _flip(out[key]) if late else [dict(out["groups"][0], draw_id=_flip(
+            out["groups"][0]["draw_id"]))] + out["groups"][1:]})
+    return out
+
+
 FLIPS = {
     "setup": (setup, "setup_cuda", lambda *a: dict(setup.setup_plain(*a), rec=_flip(setup.setup_plain(*a)["rec"]))),
     "raster": (raster_tile, "raster_cuda", _flip_raster()),
@@ -372,6 +386,8 @@ FLIPS = {
     "bloom_tail": (bloom, "tail_cuda", lambda s, n: [_flip(x) if i == 1 else x
                                                      for i, x in enumerate(bloom.tail_plain(s, n))]),
     "trace": (shadow, "trace_cuda", _plain_trace(flip_blocks=0)),
+    "cull": (cull, "cull_pass_cuda", lambda *a, **kw: _flip_cull(cull.cull_pass_plain(*a, **kw), kw["late"])),
+    "pyramid": (pyramid, "pyramid_cuda", lambda *a: _flip(pyramid.build_pyramid_plain(*a))),
     "trace_one_block": (shadow, "trace_cuda", _plain_trace(flip_blocks=1)),
 }
 # the kernel each flip is caught in, and the replay that catches it: the
@@ -382,7 +398,10 @@ CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "se
           "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
           "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "bloom_tail": ("bloom_tail", "bloom_tail"),
           "trace": ("trace", "trace_alpha"),
+          "cull": ("cull", "cull early"), "cull late": ("cull late", "cull late"), "pyramid": ("pyramid", "pyramid"),
           "trace_one_block": ("trace_one_block", "trace_alpha on one block")}
+FLIPS.update({"cull late": (cull, "cull_pass_cuda",
+                             lambda *a, **kw: _flip_cull(cull.cull_pass_plain(*a, **kw), kw["late"], late=True))})
 FLIPS.update(raster_window=(raster_tile, "raster_cuda", _flip_raster(band=True)),
              raster_alpha_window=(raster_tile, "raster_cuda", _flip_raster(band=True, alpha=True)))
 
