@@ -1,9 +1,11 @@
 """The control of `correct` at a cell's own size: the reference with its
 vertex transform in bfloat16, the precision below the float32 the
 configuration states, put in the program's place and compared with the
-float32 reference by the cell's own comparison (core/check.py).  A later
-change that moved the transform to 16-bit floats would render this way;
-its readings have to fail the cell's limits.  The benchmark's own runs do
+float32 reference by the cell's own comparison (core/check.py; the
+configuration kind's own reference and numbers where it brings them: its
+`compare_extra` gets the control frame's `extra` with `at`, its samples).
+A later change that moved the transform to 16-bit floats would render
+this way; its readings have to fail the cell's limits.  The benchmark's own runs do
 not run it.  One JSON line a seed, for the frame a run would check:
 
     python3 framebench/control.py --workload <cell> --seeds <n> [<n> ...]
@@ -45,6 +47,8 @@ def readings(workload: str, seed: int, dev, root: str = ROOT) -> dict:
     ref = reference.render(config, mix, kind, x, i, seed, dev, camera, motion)
     ctl = reference.render(config, mix, kind, x, i, seed, dev, camera, motion, dtype=torch.bfloat16, at=ref.samples)
     out = check.compare(check.reference_view(ctl), ref, check.pixel_size(config))
+    out.update(check.compare_extra(kind, dict(getattr(ctl, "extra", {}), at=ctl.samples), ref,
+                                   check.pixel_size(config)))
     return dict(out, counts=dict(check.COUNTS))
 
 

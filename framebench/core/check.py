@@ -24,7 +24,9 @@ readings of sound runs and of the control (PERF.md):
   other, over the draws covering 16 on either;
 - `missed`: draws covering at least 16 pixels in the reference that the
   program's carried visibility state marks hidden, over the draws covering
-  16 there.
+  16 there;
+- and a configuration kind's own numbers, where it brings them
+  (`compare_extra`).
 """
 
 from __future__ import annotations
@@ -103,6 +105,26 @@ def compare(p: dict, ref, pixel: float) -> dict:
     big = (pp >= MIN_PIXELS) | (rp >= MIN_PIXELS)
     out["visible"] = share(((pp >= MIN_PIXELS) & (rp == 0)) | ((rp >= MIN_PIXELS) & (pp == 0)), big, "visible")
     out["missed"] = share(~p["draw_vis"], rp >= MIN_PIXELS, "missed")
+    return out
+
+
+BASE_NAMES = ("replay", "geom", "image", "shadow", "sunmap", "visible", "missed", "setup_drops")
+
+
+def compare_extra(kind, p_extra, ref, pixel: float) -> dict:
+    """The kind's own numbers (kinds/<kind>.py `compare_extra`: `p_extra`
+    what its `program_extra` read of the program's frame, or the control's
+    frame's `extra` with `at`, its samples; `ref` the reference's frame),
+    each a share by name; none where the kind has none."""
+    from . import hooks
+
+    own = hooks.kind_hook(kind, "compare_extra")
+    if own is None:
+        return {}
+    out = {str(k): float(v) for k, v in own(p_extra, ref, pixel).items()}
+    clash = sorted(set(out) & set(BASE_NAMES))
+    if clash:
+        raise SystemExit(f"framebench: kind {kind.__name__}'s compare_extra names {clash}, the harness's own numbers")
     return out
 
 

@@ -1,10 +1,18 @@
 """The reference's side of a cell: its scene from the harness's inputs and
-frame i of the traffic mix, with the mix's camera path and motion."""
+frame i of the traffic mix, with the mix's camera path and motion.
+
+A configuration's kind may bring its own (kinds/<kind>.py
+`reference_scene`, `reference_render`, with the arguments and returns of
+`scene` and `render` here); every caller finds it through `scene` and
+`render`, and where the kind has none, `base_scene` and `base_render`
+serve."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import hooks
 
 SAMPLES = 16384  # pixels shaded and shadow-tested, unless the configuration says
 SUN_TEXELS = 8192  # texels of the sun map aimed through the moving draws at rest
@@ -27,7 +35,16 @@ def samples(config: dict, seed: int, dev) -> torch.Tensor:
 
 def scene(config: dict, mix: dict, kind, x, i: int, dev, motion):
     """The reference's scene at frame i (ref.frame.Scene), and the first
-    moving draw."""
+    moving draw: the kind's own, or `base_scene`'s."""
+    own = hooks.kind_hook(kind, "reference_scene")
+    if own is not None:
+        return own(config, mix, kind, x, i, dev, motion)
+    return base_scene(config, mix, kind, x, i, dev, motion)
+
+
+def base_scene(config: dict, mix: dict, kind, x, i: int, dev, motion):
+    """The reference's scene at frame i from the kind's levels of detail
+    and the harness's inputs, and the first moving draw."""
     from ref import frame as ref_frame
 
     sc = ref_frame.Scene.build(kind.reference_levels(config), x.draws, x.materials, x.mips, dev)
@@ -39,9 +56,20 @@ def scene(config: dict, mix: dict, kind, x, i: int, dev, motion):
 
 def render(config: dict, mix: dict, kind, x, i: int, seed: int, dev, camera, motion, dtype=torch.float32,
            at=None):
-    """Frame i as the reference renders it (ref.frame.Frame), shaded at the
-    samples drawn from the seed, or at the pixels `at` (the control, at the
-    reference's)."""
+    """Frame i as the reference renders it (ref.frame.Frame, or an object
+    with its fields and an `extra` dict), shaded at the samples drawn from
+    the seed, or at the pixels `at` (the control, at the reference's): the
+    kind's own, or `base_render`'s."""
+    own = hooks.kind_hook(kind, "reference_render")
+    if own is not None:
+        return own(config, mix, kind, x, i, seed, dev, camera, motion, dtype=dtype, at=at)
+    return base_render(config, mix, kind, x, i, seed, dev, camera, motion, dtype=dtype, at=at)
+
+
+def base_render(config: dict, mix: dict, kind, x, i: int, seed: int, dev, camera, motion, dtype=torch.float32,
+                at=None):
+    """Frame i by ref.frame from `scene`'s scene: every draw through one
+    z-buffer, post passes alpha-tested, no emissive light."""
     from ref import frame as ref_frame
 
     sc, _ = scene(config, mix, kind, x, i, dev, motion)

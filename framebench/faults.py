@@ -11,7 +11,9 @@ Faults: `state` (the visibility state handed on unchanged, so it stays at
 its cold start), `half` (half of the draws left out), `image` (the image
 altered: +0.25 in green), `shadow` (the sun term left at 1, unshadowed),
 and with a sun-map update `stale` (the band not updated: the tail's
-shadows stay at rest).
+shadows stay at rest).  A configuration kind's own numbers are read
+beside the harness's (each fault keeps the sound frame's `program_extra`,
+but `half`, which renders anew).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def readings(workload: str, seed: int, dev, root: str = ROOT) -> dict:
 
     import control
     import run as fb_run
-    from core import check, reference, renderer
+    from core import check, hooks, reference, renderer
 
     _, _, config, mix, _ = fb_run.load_cell(workload, root)
     kind, camera, motion = fb_run.cell_hooks(config, mix, root)
@@ -45,10 +47,13 @@ def readings(workload: str, seed: int, dev, root: str = ROOT) -> dict:
         state = prog.step(i, state)["state"]
     znear = float(config["camera"]["znear"])
 
+    program_extra = hooks.kind_hook(kind, "program_extra")
+
     def view(**kw):
         cap = {}
         out = prog.step(k, state, capture=cap, **kw)
-        return check.program_view(out, cap, znear, prog.frame)
+        pv = check.program_view(out, cap, znear, prog.frame)
+        return pv if program_extra is None else dict(pv, extra=program_extra(out, cap, config))
 
     sun_frame = prog.sun_frame()
     views = {"sound": view()}
@@ -72,7 +77,8 @@ def readings(workload: str, seed: int, dev, root: str = ROOT) -> dict:
     del state
     torch.cuda.empty_cache()
     ref = reference.render(config, mix, kind, x, k, seed, dev, camera, motion)
-    out = {name: check.compare(v, ref, check.pixel_size(config)) for name, v in views.items()}
+    out = {name: check.compare(v, ref, check.pixel_size(config)) | check.compare_extra(
+        kind, v.get("extra"), ref, check.pixel_size(config)) for name, v in views.items()}
     if sun_frame is not None:
         band = reference.sun_band(config, mix, kind, x, k, seed, dev, motion, sun_frame)
         for name, v in views.items():

@@ -15,9 +15,10 @@ one more is captured for the work counts: it prints the cell's per-layer
 metrics (framebench/metrics/<name>.py each).  After the window a frame
 of it drawn from the seed is replayed with its intermediate outputs kept,
 the program is freed, and the reference (framebench/ref, independent of
-the program) renders the same frame from the same inputs; `correct` says
-whether every compared number (core/check.py) is within the cell's
-limits (framebench/limits/<cell>.json).
+the program, or the configuration kind's own) renders the same frame from
+the same inputs; `correct` says whether every compared number
+(core/check.py, and the kind's own) is within the cell's limits
+(framebench/limits/<cell>.json).
 
 The last line of standard output is one JSON object; an earlier line holds
 the device record.  Exits 1 without a CUDA card.
@@ -77,6 +78,14 @@ def cell_limits(name: str, root: str = ROOT) -> dict:
         return json.load(f)
 
 
+def extra_limit(limits: dict, name: str, cell: str) -> float:
+    """The limit of a number that the configuration's kind adds; a number
+    with no limit ends the run."""
+    if name not in limits:
+        raise SystemExit(f"framebench: the kind's number {name!r} has no limit in framebench/limits/{cell}.json")
+    return limits[name]
+
+
 def cell_metrics(bench: dict, cell: dict, trace: bool) -> list[dict]:
     """The metrics this cell reports in this kind of run."""
     group = bench["per_layer"] if trace else bench["end_to_end"]
@@ -124,7 +133,7 @@ def run(opts, dev=None, root: str = ROOT) -> tuple[dict, list]:
     import numpy as np
     import torch
 
-    from core import check as check_mod, reference, renderer, trace as trace_mod, work as work_mod
+    from core import check as check_mod, hooks, reference, renderer, trace as trace_mod, work as work_mod
     from niagara_tpu_torch.utils.profiling import StageTimer
 
     bench, cell, config, mix, _ = load_cell(opts.workload, root)
@@ -246,6 +255,8 @@ def run(opts, dev=None, root: str = ROOT) -> tuple[dict, list]:
     replay = prog.step(k_i, k_state, capture=cap)
     checks = {"replay": (check_mod.share_differing(replay["image"], k_out["image"]), 0.0)}
     pv = check_mod.program_view(replay, cap, float(config["camera"]["znear"]), prog.frame)
+    program_extra = hooks.kind_hook(kind, "program_extra")
+    p_extra = None if program_extra is None else program_extra(replay, cap, config)
     sun_frame = prog.sun_frame()
     prog.free()
     del state, out, last, sample, k_state, k_out, replay, cap, start, start_state
@@ -258,6 +269,8 @@ def run(opts, dev=None, root: str = ROOT) -> tuple[dict, list]:
     if sun_frame is not None:
         band = reference.sun_band(config, mix, kind, x, k_i, opts.seed, dev, motion, sun_frame)
         checks["sunmap"] = (check_mod.compare_sun_band(pv["sun_map"][band[0]], band, sun_frame), limits["sunmap"])
+    for k, v in check_mod.compare_extra(kind, p_extra, rf, check_mod.pixel_size(config)).items():
+        checks[k] = (v, extra_limit(limits, k, cell["name"]))
     log(f"reference: {time.perf_counter() - t_ref:.2f} s; compared over {check_mod.COUNTS}")
     checks["setup_drops"] = (setup_drops, 0)
     correct = all(v <= lim for v, lim in checks.values())
