@@ -212,8 +212,10 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
     group), "shade" (both buffers and the stats).  `stages` (a
     StageTimer, begun by the caller) gets a boundary at the end of each
     and each pass's pair demand (raster_tile.count_pairs, named by the
-    pass).  Boundaries and counts only record: the outputs and the
-    launches are those of stages=None."""
+    pass), and with the layer "glass clusters", the transmission group's
+    surviving clusters against late_cluster_capacity.  Boundaries and
+    counts only record: the outputs and the launches are those of
+    stages=None."""
     assert cfg.width % TILE_W == 0 and cfg.height % TILE_H == 0, "render size must be a multiple of (8,128)"
     if not 0 <= frag_offset <= INVALID_FRAG - frag_span(cfg):
         raise ValueError(f"frag_offset {frag_offset}: the frame's ids [offset, offset + {frag_span(cfg)}) must stay "
@@ -300,9 +302,11 @@ def frame_core(scene, state: FrameState, params, cfg: FrameConfig, capture: dict
             drawn_l, clusters_l = cull_pass("late", state.draw_vis, state.vis_words, atlas, True)
             new_draw_vis = drawn_l.new_vis
             groups_l, new_words, ncmd_l, ddrop_l, cdrop_l, n_cand = clusters_l()
-        for g, ((tc, _), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
+        for g, ((tc, ccount), group) in enumerate(zip(groups_l, cfg.late_class_groups)):
             off = frag_offset + cfg.tri_capacity + g * cfg.late_tri_cap
             if group == (2,):
+                if stages is not None:
+                    stages.count("glass clusters", ccount, cfg.late_cluster_cap)
                 layer_depth, layer_vis = render_pass("glass", tc, cfg.late_tri_cap, off, None, cfg.late_pair_cap)
             else:
                 depth, vis = render_pass("late", tc, cfg.late_tri_cap, off, (depth, vis), cfg.late_pair_cap,
@@ -394,13 +398,16 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     With `cfg.bloom` the bloom of the masked g0 joins the composite
     (frame.py:643-646).  With post_passes=3 the transmission layer gets its
     own G-buffer from its own depth (frame.py:617-629) and blends in the
-    composite.  `capture` receives frame_core's kernel inputs, g0 ("g0"),
-    the shade-time valid mask ("valid"), the shadow term ("shadow", None
-    when unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and
-    the layer ("layer": its depth, vis and valid mask, or None).
-    Its spans (utils.profiling.span) are frame_core's, then "G-buffer"
-    and composite_frame's; `stages` (a StageTimer the caller has begun)
-    gets their boundaries and frame_core's counts.
+    composite.  `capture` receives frame_core's kernel inputs, the
+    attribute planes ("attrs": the interpolated normal in channels 0-2),
+    g0 and g1 ("g0", "g1": g1 holds the shading normal), the shade-time
+    valid mask ("valid"), the shadow term ("shadow", None when
+    unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and the
+    layer ("layer": its depth, vis and valid mask, or None).
+    Its spans (utils.profiling.span) are frame_core's, then with the layer
+    "layer G-buffer" (its G-buffer), "G-buffer" (the main one) and
+    composite_frame's; `stages` (a StageTimer the caller has begun) gets
+    their boundaries and frame_core's counts.
     Returns (image [H,W,3], fb, new_state, stats)."""
     if sun is not None and bvh is not None:
         raise ValueError("render_frame: give the sun map (`sun`) or the ray-traced BVH (`bvh`), not both")
@@ -409,16 +416,17 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     fb, new_state, stats, attrs, layer = frame_core(scene, state, params, cfg, capture=capture, stages=stages)
     ivp = shade_params.inverse_view_projection
     transmission = None
-    with span(stages, "G-buffer"):
-        if layer is not None:
+    if layer is not None:
+        with span(stages, "layer G-buffer"):
             g0t, g1t, valid_t = shade.gbuffer_from_attrs(layer["attrs"], layer["vis"] != INVALID_FRAG, scene,
                                                          textures=textures, depth=layer["depth"],
                                                          inverse_view_projection=ivp)
             transmission = (g0t, g1t, layer["depth"], valid_t)
+    with span(stages, "G-buffer"):
         g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures,
                                                  depth=fb.depth, inverse_view_projection=ivp)
         if capture is not None:
-            capture.update(g0=g0, valid=valid, layer=None if layer is None else dict(
+            capture.update(attrs=attrs, g0=g0, g1=g1, valid=valid, layer=None if layer is None else dict(
                 depth=layer["depth"], vis=layer["vis"], valid=valid_t))
     image = composite_frame(g0, g1, fb.depth, valid, params, shade_params, cfg, transmission=transmission, sun=sun,
                             bvh=bvh, capture=capture, stages=stages)

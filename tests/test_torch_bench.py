@@ -229,8 +229,9 @@ def _path(small, kind):
         over.update(presets.frame_overrides(1), post_passes=1)
     cfg = frame.FrameConfig(width=W, height=H, **over, **CAPS)
     params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
-    names = STAGES["early"] + (STAGES["late"] if kind != "single" else []) + \
-        (["layer setup+raster"] if kind == "glass" else []) + STAGES["tail"]
+    names = STAGES["early"] + (STAGES["late"] if kind != "single" else []) + STAGES["tail"]
+    if kind == "glass":  # the layer's pass, and its G-buffer before the main one
+        names[names.index("shade"):names.index("G-buffer")] = ["layer setup+raster", "shade", "layer G-buffer"]
     kw = dict(textures=tex)
     if kind == "rt":
         kw["bvh"] = shadow.build_scene_rt(small.ga, small.da)[0]
