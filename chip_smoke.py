@@ -37,7 +37,9 @@ Phases, each reported on its own line:
                    bench's gate: bit for bit, since both round every op as
                    IEEE f32 and the kernels are built with --fmad=false), both timed with CUDA events
                    behind a spin kernel that hides the host's enqueue (and
-                   the baseline's kernels, in turns);
+                   the baseline's kernels, in turns); the steady frame's
+                   G-buffer (gbuffer.cu, untextured) against its plain
+                   twin, exact;
   alpha small   -- the textured, alpha-classed small scene
                    (cooker.small_alpha_scene), two frames, kernels on the
                    card against the plain path on the CPU; its masks must
@@ -56,7 +58,9 @@ Phases, each reported on its own line:
                    and (alpha_test) with random mask bits; the pixels the
                    masks change (against the opaque variant on the same
                    inputs): the path's own masks may change none, the
-                   random ones must;
+                   random ones must; the steady frame's G-buffer (textured,
+                   with the alpha discard) against its plain twin, exact,
+                   its time, bound and plain time;
   sun small     -- the small alpha scene with a 256x256 sun map: the static
                    map of all but its last three draws, then two frames that
                    move those three (the animated tail), update the map on
@@ -140,8 +144,10 @@ Phases, each reported on its own line:
                    one alpha_test raster and two shades (main, one-stream
                    layer) a frame; each late group's demand, the candidates,
                    the layer's covered and blended pixels;
-  glass kernels -- every pass's setup and raster and both shades replayed on
-                   a transitional and a steady glass frame, exact;
+  glass kernels -- every pass's setup and raster, both shades and both
+                   G-buffers (gbuffer.cu, the normal map's tangent frame)
+                   replayed on a transitional and a steady glass frame,
+                   exact; the G-buffers' time, bound and plain time;
   configs small -- configs 0 and 1 (one pass, no late pass) on the small
                    scene at 256x128, kernels on the card against the CPU;
   configs       -- the viewer (niagara_tpu_torch.render_scene.run) at
@@ -303,6 +309,12 @@ CITY_REFERENCE = ("15,876 draws, 289,025 meshlets, 312 materials, 312 textures, 
 TRACE_OPS = {"nodes": 25, "tris": 52, "instances": 69, "masks": 24}
 TRACE_ROW_BYTES = {"nodes": 32, "tris": 48, "instances": 48, "masks": 64}
 TRACE_RAY_BYTES = 24 + 1 + 4
+# gbuffer.cu's f32 operations, counted from the source: a valid pixel
+# (normalize, mip, emissive, srgb encode, oct encode), a texture sample
+# (addressing, four unorms and the bilinear blend of four channels, the
+# srgb decode), a bent normal (four world positions, the tangent frame,
+# the mapped normal)
+GBUFFER_OPS = {"pixel": 60, "sample": 60, "bend": 150}
 # the render size of the glass, configs and mesh paths
 FULL = (1920, 1080)
 # the sharded frame's shards in one process
@@ -387,9 +399,10 @@ def ptxas_resources(log: str) -> list[str]:
             mangled = m.group(1)
             name = next((k for k in ("setup_kernel", "setup_scatter", "setup_count", "setup_scan", "raster_tile",
                                      "shade_px", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2",
-                                     "trace_any_hit")
+                                     "trace_any_hit", "gbuffer_px")
                          if k in mangled), mangled)
-            name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+            flags = re.findall(r"Lb([01])E", mangled)
+            name += f"<{', '.join('true' if f == '1' else 'false' for f in flags)}>" if flags else ""
             spill = ""
         elif name and "spill" in line:
             spill = line.strip()
@@ -552,7 +565,8 @@ def main() -> int:
     run_bench(smi)
 
     order = ("draw_cull", "cluster_cull", "pyramid_base", "setup", "setup_alpha", "raster", "raster_alpha",
-             "raster_alpha_window", "shade", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2", "trace", "trace_alpha")
+             "raster_alpha_window", "shade", "gbuffer", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2", "trace",
+             "trace_alpha")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -633,12 +647,13 @@ def run_all(base, city_job, dev, smi) -> dict:
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup=6, raster=6, shade=3, **bloom_launches(3), **cull_launches(3))
+    expected = launch_counts(setup=6, raster=6, shade=3, gbuffer=3, **bloom_launches(3), **cull_launches(3))
     opaque = run_path("", ds, None, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("", "transitional frame 1", opaque["transitional"], ds, opaque["params"], cfg, setup, raster_tile)
     rows = compare_kernels("", "steady frame 4", opaque["steady"], ds, opaque["params"], cfg, setup, raster_tile,
                            base)
     kernels = {r["name"]: dict(r, path="opaque", launches=opaque["launches"][r["name"]]) for r in rows}
+    compare_gbuffer("", "steady frame 4", opaque["steady"], ds, None, opaque["sp"])
     profile_frames("profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], cfg)[2],
                    opaque["state"])
 
@@ -647,7 +662,8 @@ def run_all(base, city_job, dev, smi) -> dict:
     small_reference("rt small", dev, scene.upload(geometry, small_draws), None,
                     frame.FrameConfig(width=256, height=128, shadows=True, **presets.small_capacities()),
                     scene, camera, frame, bvh=shadow.build_scene_rt(geometry, small_draws)[0])
-    per_frame = launch_counts(setup=2, raster=2, shade=1, trace=1, **bloom_launches(1), **cull_launches(1))
+    per_frame = launch_counts(setup=2, raster=2, shade=1, gbuffer=1, trace=1, **bloom_launches(1),
+                              **cull_launches(1))
     rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
                 shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
     kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow, base),
@@ -682,7 +698,7 @@ def run_all(base, city_job, dev, smi) -> dict:
         f"{len(mips)} materials with {mips[0][0].shape[0]}^2 textures, texel pool {table.texels.shape[0]}, "
         f"masks {masks.shape}, {time.perf_counter() - t0:.1f} s")
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **presets.headline_capacities(ds.num_draws))
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3),
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, gbuffer=3, **bloom_launches(3),
                              **cull_launches(3))
     alpha = run_path("alpha ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     compare_kernels("alpha ", "transitional frame 1", alpha["transitional"], ds, alpha["params"], cfg, setup,
@@ -694,12 +710,14 @@ def run_all(base, city_job, dev, smi) -> dict:
             kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
         elif r["name"] == "shade":  # one row per kernel: shade's alpha-path numbers ride in its opaque row
             kernels["shade"]["alpha_path"] = side_row(r, alpha["launches"]["shade"])
+    kernels["gbuffer"] = dict(compare_gbuffer("alpha ", "steady frame 4", alpha["steady"], ds, tex, alpha["sp"]),
+                              path="alpha", launches=alpha["launches"]["gbuffer"])
     for r in compare_bloom("bloom kernels", alpha["steady"]["g0"], cfg.width, cfg.height, bloom, base):
         kernels[r["name"]] = dict(r, path="alpha", launches=alpha["launches"][r["name"]])
     profile_frames("alpha profile", lambda st, i: frame.render_frame(ds, st, alpha["params"], alpha["sp"], cfg,
                                                                     textures=tex)[2], alpha["state"])
     # the alpha frame ray-traced with the quality-1 any-hit through the masks
-    per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, trace_alpha=1,
+    per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, gbuffer=1, trace_alpha=1,
                               **bloom_launches(1), **cull_launches(1))
     rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
                  _build, smi, per_frame, 3, mats=mats, mips=mips, depth=alpha["fb"].depth)
@@ -768,7 +786,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     caps = presets.scene_capacities(sd.geometry, sd.draws)
     cfg = frame.FrameConfig(width=1920, height=1080, post_passes=2, **caps)
     log("city scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, **bloom_launches(3),
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, shade=3, gbuffer=3, **bloom_launches(3),
                              **cull_launches(3))
     cam = camera.Camera(position=sd.camera_position, orientation=sd.camera_orientation)
     path = run_path("city ", ds, tex, cfg, dev, frame, camera, _build, expected, smi, cam=cam,
@@ -939,7 +957,7 @@ def run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi) -> None:
         f"unsharded scene {time.perf_counter() - t0:.2f} s, covered texels {int((static > 0).sum())}")
     del static
 
-    per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1)
+    per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1, gbuffer=1)
     runs = {}
     for k in (n, 1):
         expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **bloom_launches(3),
@@ -1174,7 +1192,7 @@ def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
     caps = presets.headline_capacities(ds.num_draws)
     cfg = frame.FrameConfig(width=FULL[0], height=FULL[1], post_passes=3, **caps)
     log("glass scene", f"capacities {caps}")
-    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, **bloom_launches(3),
+    expected = launch_counts(setup_alpha=9, raster=6, raster_alpha=3, shade=6, gbuffer=6, **bloom_launches(3),
                              **cull_launches(3, late_groups=2))
     path = run_path("glass ", ds, tex, cfg, dev, frame, camera, _build, expected, smi)
     s, steady = path["stats"], path["steady"]
@@ -1196,6 +1214,9 @@ def run_glass(kernels, geometry, draws, dev, smi, base) -> None:
                            base)
     for r in rows:
         kernels[r["name"]]["glass_path"] = side_row(r, path["launches"][r["name"]])
+    compare_gbuffer("glass ", "transitional frame 1", path["transitional"], ds, tex, path["sp"])
+    kernels["gbuffer"]["glass_path"] = side_row(compare_gbuffer("glass ", "steady frame 4", steady, ds, tex,
+                                                                path["sp"]), path["launches"]["gbuffer"])
     profile_frames("glass profile", lambda st, i: frame.render_frame(ds, st, path["params"], path["sp"], cfg,
                                                                     textures=tex)[2], path["state"])
 
@@ -1245,7 +1266,7 @@ def run_configs(kernels, dev, smi) -> None:
         per[config] = (r, capture, launches)
         depth[config] = r["fb"].depth
         n = 1 if config < 2 else 2
-        expected = launch_counts(setup=2 * n, raster=2 * n, shade=2,
+        expected = launch_counts(setup=2 * n, raster=2 * n, shade=2, gbuffer=2,
                                  **bloom_launches(2), **cull_launches(2, two_pass=n == 2))
         log("configs", f"config {config}: {CONFIG_DRAWS} draws, frame ms (CUDA events) {r['frame_ms']}, "
             f"{secs:.1f} s with the PNGs | {frame_line(s)} covered_px {int((r['fb'].vis != INVALID).sum())} | passes "
@@ -1355,8 +1376,8 @@ def run_obj_cache(dev, smi) -> None:
             f"({t5 - t4:.3f} s) | on the host of {smi}")
 
         frames, (W, H) = 4, FULL
-        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, **bloom_launches(frames, (W, H)),
-                                 **cull_launches(frames))
+        expected = launch_counts(setup=2 * frames, raster=2 * frames, shade=frames, gbuffer=frames,
+                                 **bloom_launches(frames, (W, H)), **cull_launches(frames))
         for label in ("cold", "warm"):
             zero_launches()
             t0 = time.perf_counter()
@@ -1421,7 +1442,7 @@ def run_entry(dev, smi) -> None:
     finally:
         frame.render_frame = render_frame
     cfg = frame.FrameConfig(**entry.ENTRY_CONFIG)
-    expected = launch_counts(setup=4, raster=4, shade=2, **bloom_launches(2, (cfg.width, cfg.height)),
+    expected = launch_counts(setup=4, raster=4, shade=2, gbuffer=2, **bloom_launches(2, (cfg.width, cfg.height)),
                              **cull_launches(2))
     (ci, cfb, cst, cs), (gi, gfb, gst, gs) = kept["cpu"][-1], kept[str(dev)][-1]
     cs, gs = cs.to_dict(), gs.to_dict()
@@ -1456,7 +1477,7 @@ def run_entry(dev, smi) -> None:
         check(printed.getvalue() == line, f"dryrun_multichip({n}) printed {printed.getvalue()!r}")
         runs[str(where)] = (out, secs, printed.getvalue().strip())
     (c, _, _), (g, secs, line) = runs["cpu"], runs[str(dev)]
-    expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n,
+    expected = launch_counts(setup=2 * n, raster=n, raster_alpha=n, shade=n, gbuffer=n,
                              **bloom_launches(1, tuple(entry.DRYRUN_CONFIG[k] for k in ("width", "height"))),
                              **cull_launches(n))
     cs, gs = c["stats"].to_dict(), g["stats"].to_dict()
@@ -1705,6 +1726,52 @@ def shade_work(streams, vis) -> tuple[float, float]:
     covered = vis[vis != INVALID]
     winners = int(torch.unique(covered).numel())
     return vis.numel() * 4 + winners * 39 * 4 + vis.numel() * 13 * 4, SHADE_OPS * float(covered.numel())
+
+
+def gbuffer_work(attrs, valid, sc, tex, depth=None, inverse_view_projection=None) -> tuple[float, float]:
+    """(bytes, operations) of a G-buffer: the valid mask in and g0, g1 and
+    valid out at every pixel; a valid pixel's attribute record, a 16-byte
+    texel footprint for each slot it samples and, normal-mapped, its depth;
+    GBUFFER_OPS per valid pixel, sample and bent normal."""
+    nv = int(valid.sum())
+    nbytes, ops = valid.numel() * (1 + 16 + 16 + 1) + nv * 13 * 4, GBUFFER_OPS["pixel"] * nv
+    if tex is not None:
+        mat = attrs[..., 7][valid].long()
+        tids = (sc.mat_row[0].expand(nv, -1) if sc.mat_row.shape[0] == 1 else sc.mat_row[mat])[:, 11:15]
+        nmap = depth is not None and inverse_view_projection is not None
+        used = [on and (i != 1 or nmap) for i, on in enumerate(sc.texture_slots)]
+        samples = sum(int((tids[:, i] > 0).sum()) for i in range(4) if used[i])
+        bent = int((tids[:, 1] > 0).sum()) if used[1] else 0
+        nbytes += samples * 16 + bent * 4
+        ops += GBUFFER_OPS["sample"] * samples + GBUFFER_OPS["bend"] * bent
+    return float(nbytes), float(ops)
+
+
+def compare_gbuffer(tag, label, capture, ds, tex, sp) -> dict:
+    """The frame's G-buffers (main, and the layer's) through the package's
+    replay (render/parity.py replay_gbuffer: the kernel against
+    gbuffer_plain, bit for bit), then each timed against the plain twin
+    on the same inputs; times and bounds are per frame (both G-buffers).
+    Returns the kernel's row."""
+    from niagara_tpu_torch.ops import shade
+    from niagara_tpu_torch.render import parity
+
+    ms = plain_ms = nbytes = ops = 0.0
+    for c in parity.replay_gbuffer(capture, ds, tex, sp.inverse_view_projection):
+        for line in c["lines"]:
+            log(f"{tag}kernels", f"{label} {line}")
+        args, kw = c["args"], c["kwargs"]
+        ms += cuda_ms(lambda: shade.gbuffer_cuda(*args, **kw), 20)
+        plain_ms += cuda_ms(lambda: shade.gbuffer_plain(*args, **kw), 3)
+        work = gbuffer_work(*args, **kw)
+        nbytes += work[0]
+        ops += work[1]
+    bms, by = bound(nbytes, ops)
+    log(f"{tag}kernels", f"{label} gbuffer: kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per frame, bound "
+        f"{bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), share {bms / ms:.1%}, max_abs_err 0.0")
+    return dict(name="gbuffer", route="cuda", source="niagara_tpu_torch/csrc/gbuffer.cu",
+                replaces="none: XLA ops (niagara_tpu/ops/shade.py:260 gbuffer_from_attrs)", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, base=None) -> list[dict]:
@@ -1995,7 +2062,7 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
               "image not finite")
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
-    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3,
+    expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3, gbuffer=3,
                              **bloom_launches(3), **cull_launches(3))
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")

@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu", "cull.cu")
+SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu", "cull.cu", "gbuffer.cu")
 HEADERS = ("lookback.cuh",)  # included by sources: hashed with them
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
@@ -46,11 +46,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # trace_alpha the two instances of trace.cu's BVH walk; draw_cull /
 # cluster_cull count cull.cu's two kernels of a cull pass, cluster_order its
 # x-ordered metadata gather (one a class group), pyramid_base /
-# pyramid_filter the depth pyramid's two
+# pyramid_filter the depth pyramid's two; gbuffer counts gbuffer.cu's
+# G-buffer encode (every instance of its template)
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
             "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_tail": 0, "bloom_x2": 0,
             "trace": 0, "trace_alpha": 0, "draw_cull": 0, "cluster_cull": 0, "cluster_order": 0, "pyramid_base": 0,
-            "pyramid_filter": 0}
+            "pyramid_filter": 0, "gbuffer": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
@@ -141,6 +142,16 @@ class PyramidPlan(ctypes.Structure):
         (k, ctypes.c_int * PYRAMID_LEVELS) for k in ("h", "w", "two_x", "ny", "nx", "uoff")]
 
 
+class GBufferArgs(ctypes.Structure):
+    """Mirror of `struct GBufferArgs` in csrc/gbuffer.cu: the G-buffer's
+    inputs, outputs and launch constants."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in ("attrs", "valid", "depth", "mat_row", "texels", "quads", "mip_rows",
+                                               "g0", "g1", "valid_out", "count")] + [
+        ("ivp", ctypes.c_float * 16)] + [(k, ctypes.c_int) for k in ("width", "height", "nm", "row_len", "n_tex",
+                                                                     "slots", "meta")]
+
+
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
     # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
@@ -178,6 +189,8 @@ _SIGNATURES = {
     "pyramid_base_launch": [P, PyramidPlan, P, P, P],
     # plan, index, u, atlas, stream
     "pyramid_filter_launch": [PyramidPlan, P, P, P, P],
+    # args, textured, normal map, quads, stream
+    "gbuffer_launch": [GBufferArgs, I, I, I, P],
 }
 
 

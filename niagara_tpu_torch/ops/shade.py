@@ -12,8 +12,10 @@ the sharded frame's G-buffer encoding (parallel/mesh.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import _build
 from ..render import textures as tex_mod
 from . import cullmath
 from .raster import INVALID_FRAG
@@ -90,7 +92,8 @@ def _world_position(depth, inverse_view_projection, width: int, height: int):
     return torch.stack(wposh[:3], dim=-1) / wdiv[..., None]
 
 
-def gbuffer_from_attrs(attrs_img, valid, scene, textures=None, *, depth=None, inverse_view_projection=None):
+def gbuffer_from_attrs(attrs_img, valid, scene, textures=None, *, depth=None, inverse_view_projection=None,
+                       stages=None, counter: str = "G-buffer pixels"):
     """Dense G-buffer from the shade kernel's attribute planes [H,W,13]:
     g0 = srgb albedo + log emissive, g1 = oct normal + gloss.  With
     `textures` (render.textures.TextureTable on the device) it samples the
@@ -98,7 +101,84 @@ def gbuffer_from_attrs(attrs_img, valid, scene, textures=None, *, depth=None, in
     is under 0.5; a material with a normal map bends the normal through
     the screen-space tangent frame, which needs `depth` [H, W] and
     `inverse_view_projection` (without them the map is ignored, as in the
-    reference).  Returns (g0, g1, valid)."""
+    reference).  CPU tensors take the plain twin (gbuffer_plain), CUDA
+    tensors the kernel (gbuffer_cuda).  `stages` (a StageTimer) gets the
+    count `counter`: the pixels shaded (the returned valid mask's) against
+    the frame's pixels; both routes count whether or not it is given.
+    Returns (g0, g1, valid)."""
+    kw = dict(depth=depth, inverse_view_projection=inverse_view_projection)
+    if attrs_img.device.type == "cpu":
+        g0, g1, valid = gbuffer_plain(attrs_img, valid, scene, textures, **kw)
+        shaded = valid.sum()
+    else:
+        g0, g1, valid, shaded = gbuffer_cuda(attrs_img, valid, scene, textures, **kw)
+    if stages is not None:
+        stages.count(counter, shaded, valid.numel())
+    return g0, g1, valid
+
+
+def gbuffer_cuda(attrs_img, valid, scene, textures=None, *, depth=None, inverse_view_projection=None):
+    """The G-buffer kernel (csrc/gbuffer.cu): gbuffer_plain's contract in
+    one launch, plus the pixels it shaded (an int64 [1] word the kernel
+    sums into).  It allocates only its outputs.  Returns (g0, g1, valid,
+    shaded)."""
+    _build.require_cuda(attrs_img, "gbuffer")
+    H, W = valid.shape
+    _build.expect(attrs_img, torch.float32, (H, W, 13), "gbuffer attrs")
+    _build.expect(valid, torch.bool, (H, W), "gbuffer valid")
+    nm, row_len = scene.mat_row.shape
+    _build.expect(scene.mat_row, torch.float32, (nm, row_len), "gbuffer mat_row")
+    if row_len < 20:
+        raise ValueError(f"gbuffer: material rows of {row_len} columns, expected 20")
+    dev = attrs_img.device
+    keep = [attrs_img.contiguous(), valid.contiguous(), scene.mat_row.contiguous()]
+    args = _build.GBufferArgs(attrs=keep[0].data_ptr(), valid=keep[1].data_ptr(), mat_row=keep[2].data_ptr(),
+                              width=W, height=H, nm=nm, row_len=row_len, n_tex=1)
+    textured = textures is not None
+    nmap = textured and scene.texture_slots[1] and depth is not None and inverse_view_projection is not None
+    quad = textured and textures.texels_quad is not None
+    if textured:
+        n = textures.texels.shape[0]
+        nt = textures.mip_count.shape[0]
+        tabled = [(textures.texels, torch.uint8, (n, 4), "texels"),
+                  (textures.mip_rows, torch.int32, (nt * tex_mod.MAX_MIPS, 4), "mip_rows")]
+        if quad:
+            tabled.append((textures.texels_quad, torch.uint8, (n, 16), "texels_quad"))
+        ptrs = []
+        for t, dtype, shape, what in tabled:
+            _build.expect(t, dtype, shape, f"gbuffer {what}")
+            t = t.contiguous()
+            if t.data_ptr() % 16:  # rows are read with 16-byte loads
+                t = t.clone()
+            keep.append(t)
+            ptrs.append(t.data_ptr())
+        args.texels, args.mip_rows = ptrs[0], ptrs[1]
+        if quad:
+            args.quads = ptrs[2]
+        args.n_tex = nt
+        args.slots = sum(1 << i for i, s in enumerate(scene.texture_slots) if s)
+        args.meta = int(scene.has_texture_meta and n < (1 << 24))
+    if nmap:
+        _build.expect(depth, torch.float32, (H, W), "gbuffer depth")
+        if H < 2 or W < 2:
+            raise ValueError(f"gbuffer: the tangent frame needs a frame of 2x2 pixels or more, got {W}x{H}")
+        keep.append(depth.contiguous())
+        args.depth = keep[-1].data_ptr()
+        args.ivp[:] = [float(x) for x in np.asarray(inverse_view_projection, dtype=np.float32).reshape(16)]
+    g0 = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+    g1 = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+    valid_out = torch.empty((H, W), dtype=torch.bool, device=dev)
+    shaded = torch.zeros(1, dtype=torch.int64, device=dev)
+    args.g0, args.g1, args.valid_out, args.count = g0.data_ptr(), g1.data_ptr(), valid_out.data_ptr(), shaded.data_ptr()
+    rc = _build.lib().gbuffer_launch(args, int(textured), int(nmap), int(quad), _build.stream_ptr(attrs_img))
+    _build.LAUNCHES["gbuffer"] += 1
+    _build.check(rc, "gbuffer")
+    return g0, g1, valid_out, shaded
+
+
+def gbuffer_plain(attrs_img, valid, scene, textures=None, *, depth=None, inverse_view_projection=None):
+    """Plain torch G-buffer: gbuffer_from_attrs' contract (without the
+    count), op by op as the kernel computes it.  Returns (g0, g1, valid)."""
     normal = attrs_img[..., 0:3]
     mat = attrs_img[..., 7].to(torch.int64)
     nrm = normal / torch.clamp_min(torch.sqrt(cullmath.dot3(normal, normal))[..., None], 1e-20)

@@ -400,14 +400,17 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
     own G-buffer from its own depth (frame.py:617-629) and blends in the
     composite.  `capture` receives frame_core's kernel inputs, the
     attribute planes ("attrs": the interpolated normal in channels 0-2),
-    g0 and g1 ("g0", "g1": g1 holds the shading normal), the shade-time
-    valid mask ("valid"), the shadow term ("shadow", None when
-    unshadowed), the ray-traced pass's rays ("trace", shadow_pass) and the
-    layer ("layer": its depth, vis and valid mask, or None).
+    the depth ("depth"), g0 and g1 ("g0", "g1": g1 holds the shading
+    normal), the shade-time valid mask ("valid"), the shadow term
+    ("shadow", None when unshadowed), the ray-traced pass's rays ("trace",
+    shadow_pass) and the layer ("layer": its depth, vis, attribute planes,
+    g0, g1 and valid mask, or None).
     Its spans (utils.profiling.span) are frame_core's, then with the layer
     "layer G-buffer" (its G-buffer), "G-buffer" (the main one) and
     composite_frame's; `stages` (a StageTimer the caller has begun) gets
-    their boundaries and frame_core's counts.
+    their boundaries, frame_core's counts and the G-buffers' pixels shaded
+    ("layer G-buffer pixels", "G-buffer pixels", each against the
+    frame's pixels).
     Returns (image [H,W,3], fb, new_state, stats)."""
     if sun is not None and bvh is not None:
         raise ValueError("render_frame: give the sun map (`sun`) or the ray-traced BVH (`bvh`), not both")
@@ -420,14 +423,16 @@ def render_frame(scene, state: FrameState, params, shade_params: ShadeParams, cf
         with span(stages, "layer G-buffer"):
             g0t, g1t, valid_t = shade.gbuffer_from_attrs(layer["attrs"], layer["vis"] != INVALID_FRAG, scene,
                                                          textures=textures, depth=layer["depth"],
-                                                         inverse_view_projection=ivp)
+                                                         inverse_view_projection=ivp, stages=stages,
+                                                         counter="layer G-buffer pixels")
             transmission = (g0t, g1t, layer["depth"], valid_t)
     with span(stages, "G-buffer"):
         g0, g1, valid = shade.gbuffer_from_attrs(attrs, fb.vis != INVALID_FRAG, scene, textures=textures,
-                                                 depth=fb.depth, inverse_view_projection=ivp)
+                                                 depth=fb.depth, inverse_view_projection=ivp, stages=stages)
         if capture is not None:
-            capture.update(attrs=attrs, g0=g0, g1=g1, valid=valid, layer=None if layer is None else dict(
-                depth=layer["depth"], vis=layer["vis"], valid=valid_t))
+            capture.update(attrs=attrs, depth=fb.depth, g0=g0, g1=g1, valid=valid,
+                           layer=None if layer is None else dict(depth=layer["depth"], vis=layer["vis"],
+                                                                 attrs=layer["attrs"], g0=g0t, g1=g1t, valid=valid_t))
     image = composite_frame(g0, g1, fb.depth, valid, params, shade_params, cfg, transmission=transmission, sun=sun,
                             bvh=bvh, capture=capture, stages=stages)
     return image, fb, new_state, stats

@@ -8,9 +8,9 @@ CPU tests hold to the reference: this gate replays a frame's kernel calls
 on the card and holds each kernel's output to its plain version's on the
 same inputs, bit for bit.
 
-`replay_frame` (with `replay_cull`), `replay_band` (of `band_args`),
-`replay_bloom` and `replay_trace` are the replays (the end-to-end check
-chip_smoke.py times and bounds the calls they return);
+`replay_frame` (with `replay_cull`), `replay_gbuffer`, `replay_band` (of
+`band_args`), `replay_bloom` and `replay_trace` are the replays (the
+end-to-end check chip_smoke.py times and bounds the calls they return);
 `kernel_parity_check` renders the small opaque and alpha scenes on the
 card and runs all four, so every kernel instance is held: cull.cu's
 draw_cull, cluster_cull and cluster_order kernels on both cull passes
@@ -170,6 +170,39 @@ def replay_frame(capture: dict, scene, params, cfg) -> list[dict]:
         calls.append(dict(name="shade", pass_=f"shade{what}", module="raster_tile", fn="shade_cuda",
                           plain="shade_plain", args=(streams, vis), kwargs={}, out=k_out,
                           lines=[f"shade{what}: {len(streams)} streams, {int((vis != INVALID_FRAG).sum())} covered px, "
+                                 "bit for bit (max_abs_err 0.0)"]))
+    return calls
+
+
+def replay_gbuffer(capture: dict, scene, textures, inverse_view_projection) -> list[dict]:
+    """The G-buffers of a frame captured by render_frame (`capture`: the
+    main attribute planes "attrs" over its visibility buffer and depth,
+    and the transmission layer's, "layer", when the frame has one)
+    through csrc/gbuffer.cu (ops/shade.py gbuffer_cuda) against the plain
+    twin (gbuffer_plain) on the same inputs: g0, g1 and valid bit for bit,
+    the kernel's count of shaded pixels equal to the twin's valid pixels,
+    and both equal to what the frame itself wrote.  Returns records in
+    replay_frame's form ("gbuffer" of module "shade")."""
+    from ..ops import shade
+
+    layers = [("", capture["attrs"], capture["shade"][1], capture["depth"], (capture["g0"], capture["g1"],
+                                                                           capture["valid"]))]
+    lay = capture.get("layer")
+    if lay is not None:
+        layers.append((" layer", lay["attrs"], lay["vis"], lay["depth"], (lay["g0"], lay["g1"], lay["valid"])))
+    calls = []
+    for what, attrs, vis, depth, frame_out in layers:
+        args = (attrs, vis != INVALID_FRAG, scene, textures)
+        kw = dict(depth=depth, inverse_view_projection=inverse_view_projection)
+        *k_out, shaded = shade.gbuffer_cuda(*args, **kw)
+        p_out = shade.gbuffer_plain(*args, **kw)
+        same_bits(tuple(k_out), p_out, f"gbuffer{what}")
+        same_bits(tuple(k_out), frame_out, f"gbuffer{what} against the frame's")
+        n = int(p_out[2].sum())
+        expect(int(shaded[0]) == n, f"gbuffer{what}: the kernel counted {int(shaded[0])} pixels, the twin {n}")
+        calls.append(dict(name="gbuffer", pass_=f"gbuffer{what}", module="shade", fn="gbuffer_cuda",
+                          plain="gbuffer_plain", args=args, kwargs=kw, out=k_out,
+                          lines=[f"gbuffer{what}: {int(args[1].sum())} covered px -> {n} shaded, g0, g1 and valid "
                                  "bit for bit (max_abs_err 0.0)"]))
     return calls
 

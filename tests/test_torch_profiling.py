@@ -208,7 +208,9 @@ def test_counters_equal_the_frame_stats(small):
     stats = step(state, timer, capture=cap)[3]
     (f,) = timer.resolve()
     c = f["counters"]
-    assert set(c) == {"early pair classes", "early pairs", "late pair classes", "late pairs", "rt steps"}
+    assert set(c) == {"early pair classes", "early pairs", "late pair classes", "late pairs", "rt steps",
+                      "G-buffer pixels"}
+    assert c["G-buffer pixels"] == ((int(cap["valid"].sum()),), (cap["valid"].numel(),))
     assert int(stats.pair_dropped) == 0
     demand = np.sum([c[f"{p} pair classes"][0] for p in ("early", "late")], axis=0)
     np.testing.assert_array_equal(demand, stats.pair_demand_vec.numpy()[1:])
