@@ -22,6 +22,14 @@ Phases, each reported on its own line:
   small         -- a 256x128 frame of 48 draws through the kernels on the
                    card against the plain torch path on the CPU (the path
                    the CPU tests hold to the JAX reference);
+  gate          -- the kernel-vs-plain gate (render/parity.py
+                   kernel_parity_check): the small opaque and alpha frames
+                   rendered on the card and every kernel instance replayed
+                   against its plain twin bit for bit: both cull passes and
+                   the pyramid, setup and raster (both variants, and a band
+                   of each raster instance), shade, both G-buffers
+                   (untextured and textured), the bloom levels and both
+                   traces; what it held;
   warmup/main   -- the opaque headline path: two 1920x1080 frames from a
                    cold state (the second one's kernel inputs are kept),
                    then, with the launch counters at zero, three chained
@@ -34,7 +42,7 @@ Phases, each reported on its own line:
                    the transitional frame 1 and the steady frame 4, each
                    against its plain torch version on the same inputs
                    through the package's replay (render/parity.py, the
-                   bench's gate: bit for bit, since both round every op as
+                   gate's: bit for bit, since both round every op as
                    IEEE f32 and the kernels are built with --fmad=false), both timed with CUDA events
                    behind a spin kernel that hides the host's enqueue (and
                    the baseline's kernels, in turns); the steady frame's
@@ -198,16 +206,13 @@ Phases, each reported on its own line:
                    CPU: stats, state, vis, depth and every traced flag
                    exact, the shadow term and image within 2e-6; "rt alpha
                    small" the small alpha scene with the quality-1 any-hit;
-  rt scene/rt pass/rt main -- bench.py's BENCH_SHADOW block on the opaque
-                   1M-draw frame: build_scene_rt and refit_tlas on the host
-                   (timed, as bench.py prints "TLAS build" and "refit"), the
-                   BVH uploaded; shadow_pass(scale=2, chunked=True: a
-                   2,048-step budget) on the steady frame's depth, its rays
-                   replayed against trace_plain (the card's grid and one
-                   block); then five
-                   chained frames of render_frame(bvh=...) from the steady
-                   state with the counters at zero: loss-free, shadow and
-                   light in the covered pixels, one trace launch a frame;
+  rt scene/rt main -- bench.py's BENCH_SHADOW block on the opaque 1M-draw
+                   frame: build_scene_rt and refit_tlas on the host (timed,
+                   as bench.py prints "TLAS build" and "refit"), the BVH
+                   uploaded; then five chained frames of
+                   render_frame(bvh=...) from the steady state with the
+                   counters at zero: loss-free, shadow and light in the
+                   covered pixels, one trace launch a frame;
   rt kernels    -- the last of those frames' rays replayed: the kernel
                    (csrc/trace.cu, trace_any_hit<false>, the rays in the
                    frame's Morton order) against trace_plain on the card,
@@ -219,24 +224,17 @@ Phases, each reported on its own line:
                    kernel in turns on the same rays), the bound from
                    trace_plain's counters; then trace_any_hit<true> on the
                    rays of "rt alpha": the alpha frame's 1M draws with
-                   their masks, its chunked pass with the alpha test, three
-                   frames with the quality-1 any-hit (one trace_alpha
-                   launch a frame);
+                   their masks, three frames with the quality-1 any-hit
+                   (one trace_alpha launch a frame);
   profile       -- torch.profiler over five more frames of each path (and
                    of the sun path's update + splice alone): device ops and
                    kernel launches per frame, device busy time and idle
                    share, the bloom kernels' launches and time, the
                    costliest device ops.
-  bench         -- after every path above: `python3 -m niagara_tpu_torch.bench`
-                   in its own process with BENCH_STAGES=1 BENCH_SHADOW=1
-                   (the city's scene cache warm): kernel_parity "exact"
-                   (the gate's replays: the small opaque and alpha frames,
-                   a band of each raster instance, bloom, both traces),
-                   loss_free, a positive value, the path's kernels launched,
-                   the stage tables of the static and animated frames each
-                   summing to the frame's ms within 5%; its stderr in
-                   chiprun_out/bench.err.
-Every path renders with bloom on, as bench.py does.  The line before the
+Loss-free frames and the launch counts of the 1M-draw paths are checked in
+"main", "alpha main" and "sun main" (and in the later paths' own main
+phases); a stage table summing to the frame's ms in "sun stages".  Every
+path renders with bloom on, as bench.py does.  The line before the
 last is the per-kernel JSON record (times, launches and bounds of the
 steady frames; a row also holds the kernel's numbers on other paths
 under "alpha_path", "glass_path", "configs_path", "city_path" and
@@ -248,7 +246,6 @@ last line is
 
 from __future__ import annotations
 
-import ast
 import functools
 import importlib
 import importlib.util
@@ -265,18 +262,10 @@ import numpy as np
 
 DROPS = ("cmd_dropped", "cluster_dropped", "tri_dropped", "pair_dropped")
 INVALID = 0x7FFFFFFF
-# NVIDIA H100 SXM peaks (data sheet; at a 700 W power limit): HBM bytes/s,
-# f32 operations/s outside the tensor cores
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-# f32 operations per unit of work, counted from the kernel sources: setup.cu
-# eval_slot per live triangle slot (three corner transforms and snaps,
-# edges, depth plane, bounds); raster.cu per (record, pixel) test (three
-# edges, the depth plane, the fill rule and the depth/id compare) and per
-# covered pixel of a masked record (uv interpolation, cell, bit); shade.cu
-# per covered pixel (weights, six interpolated channels, uv/pixel areas)
-SETUP_OPS, RASTER_OPS, MASK_OPS, SHADE_OPS = 420, 28, 34, 70
-REC_BYTES = 56 * 4
+# shade.cu's f32 operations per covered pixel (weights, six interpolated
+# channels, uv/pixel areas); setup's and raster's counts, the work they
+# need and the H100's peaks are the benchmark's (framebench/core/work.py)
+SHADE_OPS = 70
 # clock cycles of the spin kernel ahead of each timed launch (~1 ms at the
 # H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 2_000_000
@@ -319,9 +308,6 @@ GBUFFER_OPS = {"pixel": 60, "sample": 60, "bend": 150}
 FULL = (1920, 1080)
 # the sharded frame's shards in one process
 MESH_SHARDS = 4
-# the bench phase's time limit (it took 24.7 s on the H100 with the city's cache warm; 123 s with
-# BENCH_GLASS=1 BENCH_SHARDS=4 and the city cooked cold)
-BENCH_TIMEOUT_S = 600
 # the configs path: torus draws and the camera's distance in front of the
 # first draw.  Config 0 expands each draw's 1,089 LOD-0 meshlets (the
 # torus's) against the viewer's candidate budget of 65,536 clusters: up to
@@ -488,10 +474,13 @@ def chain_times(new_fn, old_fn) -> dict:
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least milliseconds the card could take: the larger of bytes over
-    the HBM rate and operations over the f32 rate, and which one it is."""
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    """The least milliseconds the card could take (the benchmark's
+    work.bound_ms: bytes over the HBM rate or operations over the f32
+    rate, the larger) and which one it is."""
+    from framebench.core import work
+
+    by = "bytes" if nbytes / work.HBM_BYTES_S >= ops / work.F32_OPS_S else "operations"
+    return work.bound_ms(nbytes, ops), by
 
 
 def frame_line(s: dict) -> str:
@@ -562,7 +551,6 @@ def main() -> int:
         city_pool.shutdown(wait=True, cancel_futures=True)
         cook_pool.shutdown(wait=True, cancel_futures=True)
     torch.cuda.empty_cache()
-    run_bench(smi)
 
     order = ("draw_cull", "cluster_cull", "pyramid_base", "setup", "setup_alpha", "raster", "raster_alpha",
              "raster_alpha_window", "shade", "gbuffer", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2", "trace",
@@ -575,55 +563,20 @@ def main() -> int:
     return 0
 
 
-def run_bench(smi) -> None:
-    """The port's benchmark, `python3 -m niagara_tpu_torch.bench`, in a
-    process of its own with BENCH_STAGES=1 and BENCH_SHADOW=1 (the city's
-    scene cache is warm by then): one JSON line on its stdout with
-    kernel_parity "exact", loss_free, a finite positive value, the path's
-    kernels launched, and the stage tables of the static and the animated
-    frame each summing to the frame's ms within 5% in both columns.  Its
-    stderr goes to chiprun_out/bench.err and its stage tables into this
-    log."""
-    import math
+def run_gate(geometry, dev) -> None:
+    """The gate (render/parity.py kernel_parity_check) on the card: the
+    small opaque and alpha frames, every kernel instance replayed against
+    its plain twin bit for bit (it raises on the first differing word);
+    then that it held every instance, the bloom levels and both traces."""
+    from niagara_tpu_torch.render import parity
 
-    env = dict(os.environ, BENCH_STAGES="1", BENCH_SHADOW="1")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "niagara_tpu_torch.bench"], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=BENCH_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "bench.err"), "w") as f:
-        f.write(proc.stderr)
-    check(proc.returncode == 0, f"the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
-    check(len(lines) == 1, f"the bench printed {len(lines)} lines on stdout")
-    out = json.loads(lines[0])
-    for line in proc.stderr.splitlines():
-        if line.startswith("[bench]  ") or "ms/frame" in line or "stages of" in line:
-            log("bench", line.removeprefix("[bench] "))
-    stages = out.get("stages", {})
-    log("bench", f"{secs:.1f} s: {out['metric']} = {out['value']:.3f} ms (frames {out['frame_ms']}), animated "
-        f"{out.get('animated_frame_ms')} ms, sun update {out.get('sunmap_update_ms')} ms, rt "
-        f"{out.get('rt', {}).get('value')} ms, city {out.get('gltf_scene', {}).get('frame_ms')} ms; kernel_parity "
-        f"{out['kernel_parity']}, loss_free {out['loss_free']}, warmup {out['warmup_s']:.2f} s, build "
-        f"{out['build_s']:.2f} s; launches {out['launches']}; stage tables {sorted(stages)} reconcile "
-        f"{ {k: v['reconcile'] for k, v in stages.items()} }; probe {out.get('probe')} on {smi}")
-    check(out["kernel_parity"] == "exact", "the bench's kernel gate did not pass")
-    # what the gate held: every kernel instance (render/parity.py)
-    gate = [line for line in proc.stderr.splitlines() if line.startswith("[bench] kernel parity:")]
-    check(len(gate) == 1, "the bench printed no kernel parity line")
-    held = ast.literal_eval(re.search(r"\((\{.*\})\) in", gate[0]).group(1))
-    log("bench", f"the gate held {held}")
+    held = parity.kernel_parity_check(geometry, dev)
+    log("gate", f"every kernel bit for bit against its plain version in {time.perf_counter() - t0:.1f} s; the gate "
+        f"held {held}")
     check(set(held["calls"]) == {"cull", "pyramid", "setup", "setup_alpha", "raster", "raster_alpha", "raster_window",
-                                 "raster_alpha_window", "shade"} and held["bloom_levels"] > 0 and held["rays"] > 0,
-          f"the bench's gate did not replay every kernel instance: {held}")
-    check(out["loss_free"] is True, "the bench dropped work")
-    check(math.isfinite(out["value"]) and out["value"] > 0, "the bench's value is not a positive time")
-    check({"setup_alpha", "raster", "raster_alpha", "shade", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2"}
-          <= set(out["launches"]), f"the bench's frames did not run the path's kernels: {out['launches']}")
-    check(set(stages) == {"static", "animated"} and all(v["reconcile"] <= 0.05 for v in stages.values()),
-          "the bench's stage columns do not sum to the frame's ms")
-    check("rt" in out and out["rt"]["value"] > 0, "the bench's RT frames did not run")
+                                 "raster_alpha_window", "shade", "gbuffer"} and held["bloom_levels"] > 0
+          and held["rays"] > 0, f"the gate did not replay every kernel instance: {held}")
 
 
 def run_all(base, city_job, dev, smi) -> dict:
@@ -645,6 +598,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     small_draws = cooker.small_scene_draws(geometry.meshes.count)
     small_reference("small", dev, scene.upload(geometry, small_draws), None,
                     frame.FrameConfig(width=256, height=128, **presets.small_capacities()), scene, camera, frame)
+    run_gate(geometry, dev)
 
     cfg = frame.FrameConfig(width=1920, height=1080, **presets.headline_capacities(ds.num_draws))
     expected = launch_counts(setup=6, raster=6, shade=3, gbuffer=3, **bloom_launches(3), **cull_launches(3))
@@ -665,7 +619,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     per_frame = launch_counts(setup=2, raster=2, shade=1, gbuffer=1, trace=1, **bloom_launches(1),
                               **cull_launches(1))
     rt = run_rt("rt", ds, geometry, draws, None, cfg, opaque["state"], opaque["params"], opaque["sp"], dev, frame,
-                shadow, _build, smi, per_frame, 5, depth=opaque["fb"].depth)
+                shadow, _build, smi, per_frame, 5)
     kernels["trace"] = dict(compare_trace("rt kernels", "steady frame", rt["bvh"], rt["trace"], shadow, base),
                             path="rt", launches=rt["launches"]["trace"])
     profile_frames("rt profile", lambda st, i: frame.render_frame(ds, st, opaque["params"], opaque["sp"], rt["cfg"],
@@ -720,7 +674,7 @@ def run_all(base, city_job, dev, smi) -> dict:
     per_frame = launch_counts(setup_alpha=2, raster=1, raster_alpha=1, shade=1, gbuffer=1, trace_alpha=1,
                               **bloom_launches(1), **cull_launches(1))
     rta = run_rt("rt alpha", ds, ga, da, tex, cfg, alpha["state"], alpha["params"], alpha["sp"], dev, frame, shadow,
-                 _build, smi, per_frame, 3, mats=mats, mips=mips, depth=alpha["fb"].depth)
+                 _build, smi, per_frame, 3, mats=mats, mips=mips)
     kernels["trace_alpha"] = dict(compare_trace("rt kernels", "alpha steady frame", rta["bvh"], rta["trace"], shadow,
                                                 base),
                                   path="rt alpha", launches=rta["launches"]["trace_alpha"])
@@ -1660,63 +1614,6 @@ def small_reference(tag, dev, np_scene, table, cfg, scene, camera, frame, cam=No
     check(depth_err == 0.0 and image_err <= 2e-6, "small frame differs from the CPU plain path")
 
 
-def setup_work(tc, out, alpha: bool) -> tuple[float, float]:
-    """(bytes, operations) one setup call needs: per live cluster its tc
-    row, per distinct meshlet its triangle, vertex and id rows (and mask
-    rows of post-class meshlets in the alpha variant), per written triangle
-    its record, box and flat index; SETUP_OPS per live triangle slot."""
-    import torch
-
-    k = int(tc["count"][0])
-    mi, post = tc["mi"][:k], tc["post_pass"][:k]
-    nbytes = k * (4 * 6 + 32) + int(torch.unique(mi).numel()) * (96 * 3 * 4 + 64 * 8 * 4 + 64 * 4)
-    if alpha:
-        nbytes += int(torch.unique(mi[post > 0]).numel()) * 8 * 96 * 4
-    nbytes += int(out["count"]) * (REC_BYTES + 4 * 4 + 4)
-    return nbytes, SETUP_OPS * float(tc["tri_count"][:k].sum())
-
-
-def raster_work(args, alpha: bool, H: int, W: int, tiles_x: int, band_row0: int = 0,
-                grid_h: int | None = None) -> tuple[float, float]:
-    """(bytes, operations) one raster call needs: tile starts, pair list,
-    the staged columns of each record it references (13, 27 with masks),
-    the carried and written depth/vis; RASTER_OPS per (pair, pixel) for
-    the pixels of the pair's tile whose centres lie in the triangle's box
-    (the setup's box; the kernel's clip box from the edge equations is the
-    same up to rounding) and, with masks, MASK_OPS per covered pixel of a
-    masked record (its screen area from the record's corners, at most its
-    clamped box).  A band of H rows
-    sits band_row0 tile rows down the grid_h-row grid its records live in."""
-    import torch
-
-    ts, pt, rec = args[:3]
-    p = int(ts[-1])
-    ids = torch.unique(pt[:p].long())
-    nbytes = ts.numel() * 4 + p * 4 + ids.numel() * (27 if alpha else 13) * 4 + H * W * 16
-    # the box: x0/x1 in cols 12/14, y1 in col 15; col 13 holds the id, so y0
-    # is setup's floor of the corners' smallest y (cols 17/25/33), 0 when a
-    # corner is behind the eye (w, cols 18/26/34)
-    r = rec[:, [12, 14, 15, 17, 25, 33, 18, 26, 34]][pt[:p].long()].double()
-    behind = r[:, 6:9].min(dim=1).values <= 1e-9
-    y0 = torch.where(behind, 0.0, torch.floor(r[:, 3:6].min(dim=1).values))
-    tile = torch.searchsorted(ts[1:].long(), torch.arange(p, device=ts.device), right=True)
-    tx, ty = (tile % tiles_x) * 128, (tile // tiles_x + band_row0) * 8
-    nx = torch.clamp(torch.minimum(r[:, 1], tx + 128) - torch.maximum(r[:, 0], tx), min=0)
-    ny = torch.clamp(torch.minimum(r[:, 2], ty + 8) - torch.maximum(y0, ty), min=0)
-    ops = RASTER_OPS * float((nx * ny).sum())
-    if alpha:
-        r = rec[ids]
-        r = r[r[:, 54] > 0].double()
-        area = 0.5 * ((r[:, 24] - r[:, 16]) * (r[:, 33] - r[:, 17]) - (r[:, 25] - r[:, 17]) * (r[:, 32] - r[:, 16]))
-        # a triangle crossing the camera plane has far-off corners: its
-        # clamped screen box bounds what it covers (x0/x1 in cols 12/14;
-        # col 13 holds the id, so y from the corners, clamped)
-        sy = torch.clamp(r[:, [17, 25, 33]], 0, grid_h or H)
-        box = (r[:, 14] - r[:, 12]) * (sy.max(dim=1).values - sy.min(dim=1).values)
-        ops += MASK_OPS * float(torch.minimum(area.abs(), box).sum())
-    return nbytes, ops
-
-
 def shade_work(streams, vis) -> tuple[float, float]:
     """(bytes, operations) of the attribute resolve: the visibility buffer,
     each winning record once (39 used floats), the attribute planes out;
@@ -1783,6 +1680,7 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
     wrappers are timed in turns with this tree's on the same inputs."""
     import torch
 
+    from framebench.core import work
     from niagara_tpu_torch.render import parity
 
     W, H, tiles_x = cfg.width, cfg.height, cfg.width // 128
@@ -1806,18 +1704,18 @@ def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, ba
         k_reps, p_reps = (20, 5) if name == "shade" else reps[c["module"]]
         ms, base_ms = in_turns(lambda: kernel(*args, **kw), old, k_reps)
         if name == "shade":
-            work = shade_work(*args)
+            counts = shade_work(*args)
         elif c["module"] == "setup":
-            work = setup_work(args[0], c["out"], name == "setup_alpha")
+            counts = work.setup_work(args[0], c["out"], name == "setup_alpha")
         else:
-            work = raster_work(args, name == "raster_alpha", H, W, tiles_x)
+            counts = work.raster_work(args, name == "raster_alpha", H, W, tiles_x)
         r = rows.setdefault(name, dict(ms=0.0, base_ms=0.0 if base else None, plain_ms=0.0, bytes=0.0, ops=0.0))
         r["ms"] += ms
         if base:
             r["base_ms"] += base_ms
         r["plain_ms"] += cuda_ms(lambda: plain(*args, **kw), p_reps)
-        r["bytes"] += work[0]
-        r["ops"] += work[1]
+        r["bytes"] += counts[0]
+        r["ops"] += counts[1]
         if base and c["module"] == "setup":  # what the zeroing of the whole capacity would cost before the launch
             cap, dev = args[5], args[0]["mi"].device
             zero_ms = cuda_ms(lambda: (torch.zeros((cap, 56), device=dev),
@@ -2117,6 +2015,7 @@ def compare_window(tag, sun, raster_tile, base=None) -> dict:
     the package's replay (render/parity.py replay_band: bit for bit); time,
     plain time and bound of the path's instance on the steady band (and
     the baseline's time, in turns, when given)."""
+    from framebench.core import work
     from niagara_tpu_torch.render import parity
 
     tiles_x = SUN_MAP // 128
@@ -2134,7 +2033,7 @@ def compare_window(tag, sun, raster_tile, base=None) -> dict:
             new = lambda: raster_tile.raster_cuda(*args, alpha_test=True, band_row0=row0)  # noqa: E731
             ms, base_ms = in_turns(new, old, 20)
             pms = cuda_ms(lambda: raster_tile.raster_plain(*args, alpha_test=True, band_row0=row0), 2)
-            nbytes, ops = raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
+            nbytes, ops = work.raster_work(args, True, d0.shape[0], SUN_MAP, tiles_x, row0, SUN_MAP)
             bms, by = bound(nbytes, ops)
             was = f" (baseline {base_ms:.4f} ms)" if base else ""
             log(tag, f"{label} {name}: kernel {ms:.4f} ms{was} vs plain {pms:.4f} ms per launch (1 launch per "
@@ -2146,23 +2045,18 @@ def compare_window(tag, sun, raster_tile, base=None) -> dict:
 
 
 def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, shadow, _build, smi, per_frame,
-           n_frames, mats=None, mips=None, depth=None) -> dict:
+           n_frames, mats=None, mips=None) -> dict:
     """The ray-traced frame (bench.py:363-390, BENCH_SHADOW): the BVH of
     the draws built on the host (build_scene_rt, then refit_tlas through
-    its cached path, both timed as bench.py prints them), uploaded; with
-    `depth`, bench.py's side metric shadow_pass(scale=2, chunked=True) on
-    it; then n_frames chained frames of render_frame(bvh=...) from
-    `state`, the counters at zero: each loss-free and finite, shadow and
-    light in the covered pixels, the launches `per_frame` times n_frames.
-    The chunked pass traces with the alpha test when `mats` is given, and
-    its rays are replayed against trace_plain (render/parity.py).
-    Returns the device BVH, the last frame's trace capture, the state,
-    the launches and the frame times."""
+    its cached path, both timed as bench.py prints them), uploaded; then
+    n_frames chained frames of render_frame(bvh=...) from `state` (with
+    the alpha test when `mats` is given), the counters at zero: each
+    loss-free and finite, shadow and light in the covered pixels, the
+    launches `per_frame` times n_frames.  Returns the device BVH, the last
+    frame's trace capture, the state, the launches and the frame times."""
     import dataclasses
 
     import torch
-
-    from niagara_tpu_torch.render import parity
 
     t0 = time.perf_counter()
     host_bvh, static = shadow.build_scene_rt(geometry, draws, mats, mips)
@@ -2178,25 +2072,6 @@ def run_rt(tag, ds, geometry, draws, tex, cfg, state, params, sp, dev, frame, sh
         f"{bvh.nodes.shape[0] - bvh.tlas_base} TLAS nodes, {bvh.tri_v0.shape[0]} triangles, mask rows "
         f"{bvh.tri_alpha.shape[0]}, {nbytes / 1e6:.1f} MB on the card | TLAS build {build_s:.3f} s (build_scene_rt), "
         f"refit {refit_s:.3f} s (refit_tlas, cached topology), upload {time.perf_counter() - t0:.3f} s")
-    if depth is not None:
-        zero_launches()
-        cap, ev = {}, [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        term = shadow.shadow_pass(depth, bvh, sun_direction=sp.sun_direction,
-                                  inverse_view_projection=sp.inverse_view_projection, width=cfg.width,
-                                  height=cfg.height, scale=2, chunked=True, capture=cap,
-                                  quality=1 if mats is not None else 0)
-        ev[1].record()
-        torch.cuda.synchronize()
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        name = "trace_alpha" if mats is not None else "trace"
-        check(bool(torch.isfinite(term).all()) and launches.get(name) == 1, "the chunked pass failed")
-        rep = parity.replay_trace(bvh, cap["trace"])  # the card's grid and one block against trace_plain
-        log(f"{tag} pass", f"shadow_pass(scale=2, chunked=True) on the steady frame's depth: "
-            f"{ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events, first call), launches {launches}, "
-            f"{steps_line(rep['steps'], rep['occluded'], shadow.CHUNKED_STEPS, cap['trace']['order'])}, mean term "
-            f"{float(term.mean()):.4f}; {name} on the card's grid and on one block equal trace_plain bit for bit")
-
     cfg = dataclasses.replace(cfg, shadows=True, shadow_quality=1 if mats is not None else 0)
     zero_launches()
     frame_ms, cap = [], {}

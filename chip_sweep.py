@@ -1,8 +1,8 @@
 """Time variants of the port's kernels on one GPU, each in turns with a
 yardstick on the same inputs.  From the repository's root:
 
-    python3 -m niagara_tpu_torch.sweep trace --baseline DIR [--other DIR ...] [--reps N]
-    python3 -m niagara_tpu_torch.sweep bloom [--baseline DIR] [--rounds N (20)]
+    python3 chip_sweep.py trace --baseline DIR [--other DIR ...] [--reps N]
+    python3 chip_sweep.py bloom [--baseline DIR] [--rounds N (20)]
 
 DIR holds another tree of the repository (e.g. an earlier commit unpacked
 by `git archive` into the ignored .cache/).  A variant that changes a
@@ -74,7 +74,7 @@ from niagara_tpu_torch import _build, cooker, scene
 from niagara_tpu_torch.ops import bloom, shadow
 from niagara_tpu_torch.render import camera, frame, parity, presets, textures
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # copies of a csrc/ file with one edit each: (label, pattern, replacement)
 # trace.cu's schedule constants, the values tried beside the built ones
@@ -468,7 +468,7 @@ def main() -> int:
     b.add_argument("--rounds", type=int, default=20, help="rounds in turns of the tail's effect")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
-        print("sweep: no CUDA device", file=sys.stderr)
+        print("chip_sweep: no CUDA device", file=sys.stderr)
         return 2
     (trace if opts.kernel == "trace" else bloom_sweep)(opts)
     return 0

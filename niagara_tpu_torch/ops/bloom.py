@@ -211,7 +211,7 @@ def bloom_chain(g0, width: int, height: int, down, up_add):
 TAIL_SMEM_BYTES = 232_448
 # Where the chain splits: the tail starts at the first level whose mips down
 # to the last fit in 48 KB.  The down and up chain at 1920x1080 on the H100
-# (PERF.md §6, `python3 -m niagara_tpu_torch.sweep bloom`; device ms of 20
+# (PERF.md §6, `python3 chip_sweep.py bloom`; device ms of 20
 # chains, then ms a chain of 100 back to back): the tail from mip 4 (32.7 KB)
 # 0.0505, 0.0505; from mip 5 0.0492, 0.0920; from mip 3 (130.6 KB, within
 # the 227 KB the tail holds) 0.0651, 0.0650; no tail 0.0508, 0.1441 (14

@@ -37,10 +37,6 @@ from . import cullmath
 
 MAX_LEAF = 8
 SHADOW_BLUR_KERNEL = 10
-# bench.py's host-looped trace (shadow.py:489-508): 128 steps x 16 rounds.
-# The rounds were a TPU workaround; the port walks the same budget in one
-# launch
-CHUNKED_STEPS = 128 * 16
 # trace_plain reads back whether any ray is left every this many steps
 FROZEN_CHECK = 32
 TENSOR_FIELDS = ("nodes", "tri_v0", "tri_e1", "tri_e2", "inst_row", "tri_uv", "tri_alpha")
@@ -632,8 +628,7 @@ def ray_order(sh: int, sw: int, checkerboard: bool, parity: int, device):
 
 def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection, width: int, height: int,
                 scale: int = 2, checkerboard: bool = True, blur: bool = True, sun_jitter: float = 1e-2,
-                znear: float = 0.1, parity: int = 0, quality: int = 0, chunked: bool = False,
-                capture: dict | None = None, stages=None):
+                znear: float = 0.1, parity: int = 0, quality: int = 0, capture: dict | None = None, stages=None):
     """Ray-traced shadow term [height, width] in [0, 1] (shadow.py:567-662,
     the reference's shadow.comp + shadowfill + shadowblur): rays from the
     world positions at 1/scale resolution toward the sun, its direction
@@ -641,10 +636,9 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
     with `checkerboard` half the pixels traced (a checkerboard of parity
     `parity`) and the rest filled from their neighbours; 1 where nothing
     was drawn; blurred; repeated up to full size.  quality >= 1 traces
-    with the alpha test.  chunked=True walks bench.py's budget
-    (CHUNKED_STEPS) instead of 1024 steps.  `capture` receives the traced
-    rays and their result ("trace": origin, direction, alpha_test,
-    max_steps, occluded, and the kernel's ray order, None on the CPU).  Its
+    with the alpha test.  `capture` receives the traced rays and their
+    result ("trace": origin, direction, alpha_test, max_steps, occluded,
+    and the kernel's ray order, None on the CPU).  Its
     spans (utils.profiling.span) are "rt rays+trace" and "rt fill+blur";
     `stages` (a StageTimer) gets their boundaries and the count "rt steps":
     the walk's steps, a ray cut at the budget counting max_steps, against
@@ -672,7 +666,7 @@ def shadow_pass(depth, bvh: ShadowBVH, *, sun_direction, inverse_view_projection
             origin, direction = wpos[rows, cols].reshape(-1, 3), dirs[rows, cols].reshape(-1, 3)
         else:
             origin, direction = wpos.reshape(-1, 3), dirs.reshape(-1, 3)
-        max_steps = CHUNKED_STEPS if chunked else 1024
+        max_steps = 1024
         order = ray_order(sh, sw, checkerboard, parity, dev) if dev.type == "cuda" else None
         occ, steps = _walk(bvh, origin, direction, max_steps=max_steps, alpha_test=quality >= 1, order=order)
         if capture is not None:

@@ -11,14 +11,15 @@ same inputs, bit for bit.
 `replay_frame` (with `replay_cull`), `replay_gbuffer`, `replay_band` (of
 `band_args`), `replay_bloom` and `replay_trace` are the replays (the
 end-to-end check chip_smoke.py times and bounds the calls they return);
-`kernel_parity_check` renders the small opaque and alpha scenes on the
-card and runs all four, so every kernel instance is held: cull.cu's
-draw_cull, cluster_cull and cluster_order kernels on both cull passes
-(with and without the merged classes and the write-back) and its two
-pyramid kernels, setup_kernel<false> and <true>, raster_tile<false> and
-<true> over the whole grid and over a band (band_row0), shade_px, the
-four bloom kernels and trace_any_hit<false> and <true>.  Any difference
-raises ParityError on the first output that differs.
+`kernel_parity_check`, chip_smoke.py's "gate" phase, renders the small
+opaque and alpha scenes on the card and runs all five, so every kernel
+instance is held: cull.cu's draw_cull, cluster_cull and cluster_order
+kernels on both cull passes (with and without the merged classes and the
+write-back) and its two pyramid kernels, setup_kernel<false> and <true>,
+raster_tile<false> and <true> over the whole grid and over a band
+(band_row0), shade_px, gbuffer_px untextured and textured, the four bloom
+kernels and trace_any_hit<false> and <true>.  Any difference raises
+ParityError on the first output that differs.
 """
 
 from __future__ import annotations
@@ -346,8 +347,10 @@ def kernel_parity_check(geometry, device, *, width: int = 256, height: int = 128
     `geometry`, post_passes=1) and the small alpha scene
     (cooker.small_alpha_scene, post_passes=2) rendered on the card, two
     frames each from a cold state with `capture={}`; each second frame's
-    setup (no-alpha and alpha), raster (opaque and alpha_test) and shade
-    calls replayed (replay_frame), a band of the alpha frame's late pass
+    cull passes, pyramid, setup (no-alpha and alpha), raster (opaque and
+    alpha_test) and shade calls replayed (replay_frame) and its G-buffer
+    (replay_gbuffer: untextured on the opaque frame, textured with the
+    alpha discard on the alpha frame), a band of the alpha frame's late pass
     (replay_band: both raster instances with a nonzero band_row0), the
     bloom levels on its g0 (replay_bloom), and one trace_any_hit batch of
     each instance: the shadow pass's rays from its depth without and with
@@ -389,13 +392,14 @@ def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128)
 
     held = dict(live=0, covered=0)
     opaque = scene_mod.from_numpy(scene_mod.upload(geometry, cooker.small_scene_draws(geometry.meshes.count)), dev)
-    cfg, params, _, cap, _ = two_frames(opaque, 1)
-    calls = replay_frame(cap, opaque, params, cfg)
+    cfg, params, sp, cap, _ = two_frames(opaque, 1)
+    calls = replay_frame(cap, opaque, params, cfg) + replay_gbuffer(cap, opaque, None, sp.inverse_view_projection)
     g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
     table = textures.build_texture_table(mips)
     sc = scene_mod.from_numpy(scene_mod.upload(g, d, mats, masks, texture_table=table), dev)
-    cfg, params, sp, cap, fb = two_frames(sc, 2, textures.to_device(table, dev))
-    calls += replay_frame(cap, sc, params, cfg)
+    tex = textures.to_device(table, dev)
+    cfg, params, sp, cap, fb = two_frames(sc, 2, tex)
+    calls += replay_frame(cap, sc, params, cfg) + replay_gbuffer(cap, sc, tex, sp.inverse_view_projection)
     row0 = height // TILE_H // 4  # tile rows 4-11 of 16 at 256x128
     band = replay_band(band_args(cap["setup_out"][-1], cfg, row0, 2 * row0), row0)
     expect(all(c["written"] > 0 for c in band), "the band replay covers no pixel")

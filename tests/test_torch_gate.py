@@ -1,9 +1,10 @@
-"""The port's benchmark (niagara_tpu_torch/bench.py), its stage spans
-(utils/profiling.py StageTimer) and its kernel-vs-plain gate
-(render/parity.py), on the CPU at 256x128 with presets.small_capacities().
+"""The animated tail (niagara_tpu_torch/bench.py), the stage spans
+(utils/profiling.py StageTimer) and the kernel-vs-plain gate
+(render/parity.py, chip_smoke.py's "gate" phase), on the CPU at 256x128
+with presets.small_capacities().
 
-* The bench's animated step (bench.SunTail.update: move the tail, render
-  its dirty band of a 256x256 sun map, pack_band; bench.animate_scene;
+* The animated step (bench.SunTail.update: move the tail, render its
+  dirty band of a 256x256 sun map, pack_band; bench.animate_scene;
   render_frame) on the small alpha scene against the same sequence built
   from the reference's functions as bench.py:325-347 chains them (the
   kernels in interpret mode), over two frames from a cold state, both
@@ -22,25 +23,17 @@
   column summing to the frame's own ms within 5%.
 * The gate: kernel_parity_check refuses a CPU device; with the kernel
   wrappers pointed at their plain versions the small scenes' replays
-  (the opaque and the alpha frame, a band of the alpha frame's late pass)
-  pass on the CPU, and a wrapper that flips one bit of one word of its
-  output is caught in the replay of its instance: setup (the alpha and
-  the opaque frame's), raster (over the grid, and over the band with and
-  without the alpha test), shade, a bloom level, the trace, a cull pass
-  (the early and the late pass's) and the pyramid.
-* `python -m niagara_tpu_torch.bench --device cpu` (300 draws, one frame)
-  prints one JSON line with bench.py's keys and no "kitten"; with the RT,
-  glass, sharded and stage knobs on it adds their keys; without
-  --device cpu on a machine with no card it exits nonzero; the knobs and
-  defaults are bench.py's.
+  (the opaque and the alpha frame with their G-buffers, a band of the
+  alpha frame's late pass) pass on the CPU, and a wrapper that flips one
+  bit of one word of its output is caught in the replay of its instance:
+  setup (the alpha and the opaque frame's), raster (over the grid, and
+  over the band with and without the alpha test), shade, the G-buffer
+  (the opaque frame's untextured and the alpha frame's textured one,
+  through the whole gate), bloom_down, bloom_up, the tail, bloom_x2, the
+  trace, a cull pass (the early and the late pass's) and the pyramid.
 """
 
 import dataclasses
-import json
-import os
-import re
-import subprocess
-import sys
 import time
 import types
 
@@ -55,13 +48,12 @@ from niagara_tpu.ops import sunmap as jsm
 from niagara_tpu.render import frame as jframe
 from niagara_tpu.render.camera import Camera, RenderSettings
 from niagara_tpu_torch import bench, cooker, scene
-from niagara_tpu_torch.ops import bloom, cull, pyramid, raster_tile, setup, shadow, sunmap
+from niagara_tpu_torch.ops import bloom, cull, pyramid, raster_tile, setup, shade, shadow, sunmap
 from niagara_tpu_torch.render import camera, frame, parity, presets, textures
 from niagara_tpu_torch.utils.profiling import StageTimer, stage_table
 from test_torch_frame import _edge_flips
 from test_torch_scene import CAPS, H, N_DRAWS, W, alpha_parity_scene
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INVALID = 0x7FFFFFFF
 MAP = 256
 STATIC_N = N_DRAWS - 3
@@ -302,6 +294,18 @@ def _plain_trace(flip_blocks=None):
     return fake
 
 
+def _plain_gbuffer(textured=None):
+    """gbuffer_plain in gbuffer_cuda's place, with the kernel's count of
+    shaded pixels; one bit of g0 flipped on the untextured (textured
+    False) or the textured calls (True; None: none)."""
+    def fake(attrs, valid, sc, tex=None, **kw):
+        g0, g1, out = shade.gbuffer_plain(attrs, valid, sc, tex, **kw)
+        if textured is not None and (tex is not None) == textured:
+            g0 = _flip(g0)
+        return g0, g1, out, out.sum().reshape(1)
+    return fake
+
+
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """Every kernel wrapper the gate replays pointed at its plain version
@@ -309,6 +313,7 @@ def plain_kernels(monkeypatch):
     monkeypatch.setattr(setup, "setup_cuda", setup.setup_plain)
     monkeypatch.setattr(raster_tile, "raster_cuda", raster_tile.raster_plain)
     monkeypatch.setattr(raster_tile, "shade_cuda", raster_tile.shade_plain)
+    monkeypatch.setattr(shade, "gbuffer_cuda", _plain_gbuffer())
     monkeypatch.setattr(bloom, "down2_cuda", bloom._down2)
     monkeypatch.setattr(bloom, "up2_add_cuda", bloom.up2_add_plain)
     monkeypatch.setattr(bloom, "tail_cuda", bloom.tail_plain)
@@ -327,8 +332,8 @@ def test_kernel_parity_check_refuses_the_cpu(small):
 def test_gate_replays_pass_with_plain_wrappers(small, plain_kernels):
     out = parity.replay_small_scene(small.g, "cpu")
     assert out["setup_records_live"] > 0 and out["covered_px"] > 100
-    assert out["calls"] == {"cull": 4, "pyramid": 2, "setup": 2, "raster": 3, "shade": 2, "setup_alpha": 2,
-                            "raster_alpha": 1, "raster_window": 1, "raster_alpha_window": 1}
+    assert out["calls"] == {"cull": 4, "pyramid": 2, "setup": 2, "raster": 3, "shade": 2, "gbuffer": 2,
+                            "setup_alpha": 2, "raster_alpha": 1, "raster_window": 1, "raster_alpha_window": 1}
     assert out["bloom_levels"] == 2 * bloom.bloom_levels(W, H) - 1
     assert 0 < out["occluded_rays"] < out["rays"] == 2 * (W // 2) * (H // 2) // 2
 
@@ -382,7 +387,12 @@ FLIPS = {
     "setup": (setup, "setup_cuda", lambda *a: dict(setup.setup_plain(*a), rec=_flip(setup.setup_plain(*a)["rec"]))),
     "raster": (raster_tile, "raster_cuda", _flip_raster()),
     "shade": (raster_tile, "shade_cuda", lambda *a: _flip(raster_tile.shade_plain(*a))),
+    "gbuffer": (shade, "gbuffer_cuda", _plain_gbuffer(textured=False)),
+    "gbuffer textured": (shade, "gbuffer_cuda", _plain_gbuffer(textured=True)),
+    "bloom_down": (bloom, "down2_cuda", lambda s: _flip(bloom._down2(s))),
     "bloom": (bloom, "up2_add_cuda", lambda s, m: _flip(bloom.up2_add_plain(s, m))),
+    "bloom_x2": (bloom, "bilinear_x2_cuda",
+                 lambda s, oh, ow: _flip(bloom._bilinear_x2(s, oh, ow).permute(1, 2, 0))),
     # one bit of one intermediate level of the tail (the second down level)
     "bloom_tail": (bloom, "tail_cuda", lambda s, n: [_flip(x) if i == 1 else x
                                                      for i, x in enumerate(bloom.tail_plain(s, n))]),
@@ -392,12 +402,15 @@ FLIPS = {
     "trace_one_block": (shadow, "trace_cuda", _plain_trace(flip_blocks=1)),
 }
 # the kernel each flip is caught in, and the replay that catches it: the
-# alpha frame's, the opaque frame's (setup_kernel<false>) or the band's
-# (each raster instance with band_row0)
+# alpha frame's, the opaque frame's (setup_kernel<false>), the band's (each
+# raster instance with band_row0) or the whole gate's (the G-buffers)
 CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "setup early"),
           "raster": ("raster", "raster early"), "raster_window": ("raster_window", "raster_window band"),
           "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
-          "shade": ("shade", "shade"), "bloom": ("bloom", "bloom_up"), "bloom_tail": ("bloom_tail", "bloom_tail"),
+          "shade": ("shade", "shade"), "gbuffer": ("gbuffer", "gbuffer"),
+          "gbuffer textured": ("gbuffer textured", "gbuffer"), "bloom_down": ("bloom_down", "bloom_down"),
+          "bloom": ("bloom", "bloom_up"), "bloom_tail": ("bloom_tail", "bloom_tail"),
+          "bloom_x2": ("bloom_x2", "bloom_x2"),
           "trace": ("trace", "trace_alpha"),
           "cull": ("cull", "cull early"), "cull late": ("cull late", "cull late"), "pyramid": ("pyramid", "pyramid"),
           "trace_one_block": ("trace_one_block", "trace_alpha on one block")}
@@ -417,6 +430,8 @@ def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
             parity.replay_bloom(captured.cap["g0"], W, H)
         elif which.startswith("trace"):
             parity.replay_trace(captured.bvh, captured.trace)
+        elif which.startswith("gbuffer"):
+            parity.replay_small_scene(small.g, "cpu")
         elif which == "setup opaque":
             parity.replay_frame(captured.ocap, captured.opaque, captured.params, captured.ocfg)
         elif which.endswith("window"):
@@ -424,66 +439,3 @@ def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
             parity.replay_band(parity.band_args(captured.cap["setup_out"][-1], captured.cfg, row0, 2 * row0), row0)
         else:
             parity.replay_frame(captured.cap, small.scene, captured.params, captured.cfg)
-
-
-# ---- the command ----
-
-SMALL_ENV = dict(BENCH_DRAWS="300", BENCH_W=str(W), BENCH_H=str(H), BENCH_FRAMES="1", BENCH_GLTF="0",
-                 BENCH_PARITY="0", BENCH_MAP=str(MAP),
-                 **{bench.ENV_CAPS[k]: str(v) for k, v in presets.small_capacities().items()})
-KEYS = {"metric", "value", "unit", "vs_baseline", "warmup_s", "build_s", "kernel_parity", "static_drops",
-        "sunmap_update_ms", "sunmap_update_dropped", "animated_frame_ms", "animated_drops", "probe", "loss_free"}
-
-
-def _bench(env, *args, timeout=300):
-    return subprocess.run([sys.executable, "-m", "niagara_tpu_torch.bench", *args], cwd=REPO,
-                          env=dict(os.environ, OMP_NUM_THREADS="1", **env), capture_output=True, text=True,
-                          timeout=timeout)
-
-
-@pytest.mark.parametrize("extra", [{}, dict(BENCH_SHADOW="1", BENCH_GLASS="1", BENCH_SHARDS="2", BENCH_STAGES="1")],
-                         ids=["defaults", "rt-glass-shards-stages"])
-def test_bench_cpu_prints_one_json_line(extra):
-    proc = _bench(dict(SMALL_ENV, **extra), "--device", "cpu")
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    lines = proc.stdout.strip().splitlines()
-    assert len(lines) == 1, proc.stdout
-    out = json.loads(lines[0])
-    assert KEYS <= set(out), KEYS - set(out)
-    assert out["metric"] == f"torus_0k_draws_{W}x{H}_full_frame_time" and "kitten" not in out["metric"]
-    assert out["unit"] == "ms" and out["value"] > 0 and out["vs_baseline"] == pytest.approx(16.7 / out["value"])
-    assert out["kernel_parity"] == "skipped" and out["build_s"] is None and out["device"] == "cpu"
-    assert "gltf_scene" not in out and out["probe"]["copy_GBps"] is None
-    assert all(v == 0 for k, v in out["static_drops"].items() if k != "pair_vec")
-    assert out["animated_drops"]["sunmap"] == out["sunmap_update_dropped"] == 0
-    # the static map's 294 draws pass through one 256-command batch: the
-    # small budgets drop there, and loss_free says so
-    assert out["sunmap_static_dropped"] > 0 and out["loss_free"] is False
-    if extra:
-        assert {"rt", "glass", "sharded", "stages"} <= set(out)
-        assert out["rt"]["value"] > 0 and out["rt"]["tlas_build_s"] > 0 and out["sharded"]["shards"] == 2
-        assert out["glass"]["transmission_draws"] > 0
-        assert set(out["stages"]) == {"static", "animated"}
-        for table in out["stages"].values():
-            assert table["reconcile"] <= 0.05
-            assert table["device_sum_ms"] == table["host_sum_ms"], "one clock on the CPU"
-        assert list(out["stages"]["animated"]["stages"])[:6] == ["tail move", "sun cull", "sun setup", "sun raster",
-                                                                  "pack_band", "scene move"]
-    else:
-        assert not {"rt", "glass", "sharded", "stages"} & set(out)
-
-
-def test_bench_without_a_card_exits_nonzero():
-    assert not torch.cuda.is_available()
-    proc = _bench(SMALL_ENV, timeout=120)
-    assert proc.returncode != 0 and proc.stdout == ""
-    assert "no CUDA device" in proc.stderr
-
-
-def test_bench_knobs_are_bench_py_s():
-    src = open(os.path.join(REPO, "bench.py")).read()
-    ref = {k: int(v.replace("_", "")) for k, v in re.findall(r'os\.environ\.get\("BENCH_(\w+)", ([\d_]+)\)', src)}
-    ref.pop("CPU")
-    assert {k: bench.KNOBS[k] for k in ref} == ref
-    assert set(re.findall(r'"(BENCH_\w+_CAP)"', src)) == set(bench.ENV_CAPS.values())
-    assert set(bench.KNOBS) - set(ref) == {"GLASS", "SHARDS", "STAGES"}

@@ -1,11 +1,12 @@
-"""The port stands alone: niagara_tpu_torch and chip_smoke.py import torch,
-numpy and the standard library, never the JAX package or JAX, and the C++
-cooker the port runs is its own copy, equal in output to the reference's.
+"""The port stands alone: niagara_tpu_torch, chip_smoke.py and chip_sweep.py
+import torch, numpy and the standard library, never the JAX package or JAX,
+and the C++ cooker the port runs is its own copy, equal in output to the
+reference's.
 
 * an AST scan of every module of the port (its subpackages too, such as
-  parallel/) and of chip_smoke.py;
-* a fresh interpreter that imports every module of the port and
-  chip_smoke.py with `jax`, `ml_dtypes` and `niagara_tpu` refused by a
+  parallel/), of chip_smoke.py and of chip_sweep.py;
+* a fresh interpreter that imports every module of the port, chip_smoke.py
+  and chip_sweep.py with `jax`, `ml_dtypes` and `niagara_tpu` refused by a
   sys.meta_path finder;
 * the port's cooker (cooker/bindings.py over cooker/native/) against
   niagara_tpu.cooker.bindings on the procedural mesh's OBJ: the parsed
@@ -26,8 +27,9 @@ from niagara_tpu_torch.cooker import bindings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "niagara_tpu")
+ROOT_SCRIPTS = ("chip_smoke", "chip_sweep")
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "niagara_tpu_torch", "**", "*.py"), recursive=True)) + [
-    os.path.join(REPO, "chip_smoke.py")]
+    os.path.join(REPO, f"{name}.py") for name in ROOT_SCRIPTS]
 
 
 def _imported(path):
@@ -49,7 +51,7 @@ def test_no_jax_package_import(path):
 def test_port_imports_with_jax_package_blocked():
     modules = sorted(
         "niagara_tpu_torch." + os.path.relpath(p, os.path.join(REPO, "niagara_tpu_torch"))[:-3].replace(os.sep, ".")
-        for p in PORT_FILES[:-1])
+        for p in PORT_FILES[:-len(ROOT_SCRIPTS)])
     code = (
         "import importlib, sys\n"
         f"FORBIDDEN = {FORBIDDEN!r}\n"
@@ -59,7 +61,7 @@ def test_port_imports_with_jax_package_blocked():
         "            raise ImportError(f'blocked: {name}')\n"
         "        return None\n"
         "sys.meta_path.insert(0, Block())\n"
-        f"for m in {modules!r} + ['chip_smoke']:\n"
+        f"for m in {modules!r} + {list(ROOT_SCRIPTS)!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in FORBIDDEN]\n"
         "print(len(sys.modules))\n"

@@ -1,4 +1,4 @@
-"""The sweep's source edits (niagara_tpu_torch/sweep.py): each pattern of
+"""The sweep's source edits (chip_sweep.py): each pattern of
 TRACE_EDITS and BLOOM_EDITS matches exactly once in the shipped csrc/ file,
 so a later edit of those lines fails here and not on the card."""
 
@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from niagara_tpu_torch import sweep
+import chip_sweep as sweep
 
 EDITS = [("trace.cu", e) for e in sweep.TRACE_EDITS] + [("bloom.cu", e) for e in sweep.BLOOM_EDITS]
 
