@@ -24,12 +24,13 @@ Phases, each reported on its own line:
                    the CPU tests hold to the JAX reference);
   gate          -- the kernel-vs-plain gate (render/parity.py
                    kernel_parity_check): the small opaque and alpha frames
-                   rendered on the card and every kernel instance replayed
-                   against its plain twin bit for bit: both cull passes and
-                   the pyramid, setup and raster (both variants, and a band
-                   of each raster instance), shade, both G-buffers
-                   (untextured and textured), the bloom levels and both
-                   traces; what it held;
+                   rendered on the card with their sun maps and every
+                   kernel instance replayed against its plain twin bit for
+                   bit: both cull passes and the pyramid, setup and raster
+                   (both variants, and a band of each raster instance),
+                   shade, both G-buffers (untextured and textured), both
+                   sun-map resolves, the bloom levels and both traces; what
+                   it held;
   warmup/main   -- the opaque headline path: two 1920x1080 frames from a
                    cold state (the second one's kernel inputs are kept),
                    then, with the launch counters at zero, three chained
@@ -94,7 +95,9 @@ Phases, each reported on its own line:
                    summing to the frame's ms within 5%;
   sun kernels   -- the window variant (both instances, tie merge) replayed
                    on the steady frame's band and on the forced band against
-                   raster_plain, exact;
+                   raster_plain, exact; the steady frame's sun-map resolve
+                   (csrc/shadowmap.cu, blur on, scale 2) against its plain
+                   twin, exact, its time, bound and plain time;
   bloom kernels -- the bloom chain (csrc/bloom.cu) on the alpha path's
                    steady frame-4 g0 at 1920x1080 with its emissive channel
                    replaced by seeded nonzero values (the scenes' own is 0):
@@ -304,6 +307,11 @@ TRACE_RAY_BYTES = 24 + 1 + 4
 # srgb decode), a bent normal (four world positions, the tangent frame,
 # the mapped normal)
 GBUFFER_OPS = {"pixel": 60, "sample": 60, "bend": 150}
+# shadowmap.cu's f32 operations, counted from the source (an exp2f one):
+# a texel tested against the map (NDC, world position, sun coordinates,
+# the packed row's compares and PCF weights), and a texel of the blur (its
+# linear depth, then two passes of 20 taps of 11 and their depth slopes)
+SHADOW_RESOLVE_OPS = {"tested": 94, "blur": 466}
 # the render size of the glass, configs and mesh paths
 FULL = (1920, 1080)
 # the sharded frame's shards in one process
@@ -553,8 +561,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     order = ("draw_cull", "cluster_cull", "pyramid_base", "setup", "setup_alpha", "raster", "raster_alpha",
-             "raster_alpha_window", "shade", "gbuffer", "bloom_down", "bloom_up", "bloom_tail", "bloom_x2", "trace",
-             "trace_alpha")
+             "raster_alpha_window", "shade", "gbuffer", "shadow_resolve", "bloom_down", "bloom_up", "bloom_tail",
+             "bloom_x2", "trace", "trace_alpha")
     check(set(kernels) == set(order), f"kernel rows {sorted(kernels)}")
     print(smi)
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
@@ -575,7 +583,8 @@ def run_gate(geometry, dev) -> None:
     log("gate", f"every kernel bit for bit against its plain version in {time.perf_counter() - t0:.1f} s; the gate "
         f"held {held}")
     check(set(held["calls"]) == {"cull", "pyramid", "setup", "setup_alpha", "raster", "raster_alpha", "raster_window",
-                                 "raster_alpha_window", "shade", "gbuffer"} and held["bloom_levels"] > 0
+                                 "raster_alpha_window", "shade", "gbuffer", "shadow_resolve"}
+          and held["bloom_levels"] > 0
           and held["rays"] > 0, f"the gate did not replay every kernel instance: {held}")
 
 
@@ -688,6 +697,8 @@ def run_all(base, city_job, dev, smi) -> dict:
     sun = run_sun(ds, da, tex, cfg, dev, frame, camera, presets, sunmap, _build, smi)
     kernels["raster_alpha_window"] = dict(compare_window("sun kernels", sun, raster_tile, base), path="sun",
                                           launches=sun["launches"]["raster_alpha_window"])
+    kernels["shadow_resolve"] = dict(compare_shadow_resolve("sun kernels", "steady frame 4", **sun["resolve"]),
+                                     path="sun", launches=sun["launches"]["shadow_resolve"])
     profile_frames("sun profile", lambda st, i: sun["step"](st, 0.3 * (i + 6))[0][2], sun["state"])
     profile_frames("sun update profile", lambda st, i: sun["update_step"](0.3 * (i + 11))[1], None)
     del ds, tex, sun
@@ -914,8 +925,8 @@ def run_mesh(kernels, geometry, ga, da, mats, mips, dev, smi) -> None:
     per_pass = dict(setup=2, raster=1, raster_alpha=1, shade=1, gbuffer=1)
     runs = {}
     for k in (n, 1):
-        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, **bloom_launches(3),
-                                 **cull_launches(3 * k))
+        expected = launch_counts(**{name: 3 * k * c for name, c in per_pass.items()}, shadow_resolve=3,
+                                 **bloom_launches(3), **cull_launches(3 * k))
         runs[k] = mesh_frames(f"mesh {k}-shard", shards[k], mesh.init_sharded_state(shards[k]), cfg, params, sp, tex,
                               sun, expected, smi)
     four, one = runs[n], runs[1]
@@ -1671,6 +1682,41 @@ def compare_gbuffer(tag, label, capture, ds, tex, sp) -> dict:
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def shadow_resolve_work(tested: int, width: int, height: int, scale: int, blur: bool) -> tuple[float, float]:
+    """(bytes, operations) of a sun-map resolve: each 1/scale depth texel
+    read once, a 16-byte packed row for each of the `tested` texels (depth
+    > 0), the term written to every pixel; SHADOW_RESOLVE_OPS per tested
+    texel and, with the blur, per texel."""
+    texels = (height // scale) * (width // scale)
+    nbytes = texels * 4 + tested * 16 + texels * scale * scale * 4
+    return float(nbytes), float(SHADOW_RESOLVE_OPS["tested"] * tested + (SHADOW_RESOLVE_OPS["blur"] * texels
+                                                                          if blur else 0))
+
+
+def compare_shadow_resolve(tag, label, capture, sp, params, cfg) -> dict:
+    """The frame's sun-map resolve through the package's replay
+    (render/parity.py replay_shadow_resolve: the kernel against
+    shadow_map_plain and the frame's own term, bit for bit, the count),
+    then timed against the plain twin on the same inputs.  Returns the
+    kernel's row."""
+    from niagara_tpu_torch.ops import sunmap
+    from niagara_tpu_torch.render import parity
+
+    (c,) = parity.replay_shadow_resolve(capture, capture["sun"], sp.inverse_view_projection, cfg, params.znear)
+    for line in c["lines"]:
+        log(tag, f"{label} {line}")
+    (depth, sf, packed, map_shape), kw = c["args"], c["kwargs"]
+    ms = cuda_ms(lambda: sunmap.shadow_resolve_cuda(depth, sf, packed, map_shape, **kw), 20)
+    plain_ms = cuda_ms(lambda: sunmap.shadow_map_plain(depth, sf, None, packed=packed, map_shape=map_shape, **kw), 3)
+    nbytes, ops = shadow_resolve_work(int(c["out"][1][0]), kw["width"], kw["height"], 2, kw["blur"])
+    bms, by = bound(nbytes, ops)
+    log(tag, f"{label} shadow_resolve: kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop), share {bms / ms:.1%}, max_abs_err 0.0")
+    return dict(name="shadow_resolve", route="cuda", source="niagara_tpu_torch/csrc/shadowmap.cu",
+                replaces="none: XLA ops (niagara_tpu/ops/sunmap.py:498 shadow_map_pass)", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+
+
 def compare_kernels(tag, label, capture, ds, params, cfg, setup, raster_tile, base=None) -> list[dict]:
     """Each kernel (and variant) of one captured frame against its plain
     version on the same inputs, through the package's replay
@@ -1803,15 +1849,15 @@ def sun_small(tag, dev, geometry, scene, camera, frame, presets, textures, sunma
     import torch
 
     from niagara_tpu_torch import bench
+    from niagara_tpu_torch.render import parity
 
     g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
     table = textures.build_texture_table(mips)
     np_scene = scene.upload(g, d, mats, masks, texture_table=table)
     cfg = frame.FrameConfig(width=256, height=128, post_passes=2, shadows=True, **presets.small_capacities())
     params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
-    m, static_n = 256, np_scene.num_draws - 3
-    kw = dict(map_w=m, map_h=m, cmd_capacity=256, cluster_capacity=1024, tri_capacity=1 << 14,
-              pair_capacity=1 << 15)
+    m, static_n = parity.SUN_MAP, np_scene.num_draws - 3
+    kw = dict(map_w=m, map_h=m, **parity.SUN_CAPS)
     runs = {}
     for where in ("cpu", dev):
         sc = scene.from_numpy(np_scene, where)
@@ -1925,8 +1971,10 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
         moved, packed_t, udrop = update(t, upd_capture, stages)
         if events:
             events[1].record()
-        out = frame.render_frame(moved, state, params, sp, cfg, textures=tex, sun=(sf, packed_t, (SUN_MAP, SUN_MAP)),
-                                 capture=capture, stages=stages)
+        sun = (sf, packed_t, (SUN_MAP, SUN_MAP))
+        out = frame.render_frame(moved, state, params, sp, cfg, textures=tex, sun=sun, capture=capture, stages=stages)
+        if capture is not None:
+            capture["sun"] = sun
         return out, udrop
 
     state = frame.init_state(n, ds.meshlet_visibility_count, dev)
@@ -1961,12 +2009,13 @@ def run_sun(ds, draws, tex, cfg, dev, frame, camera, presets, sunmap, _build, sm
         check(shaded > 0.0, "no covered pixel is in shadow")
     launches = dict(_build.LAUNCHES)
     expected = launch_counts(setup_alpha=6, raster=3, raster_alpha=3, raster_alpha_window=3, shade=3, gbuffer=3,
-                             **bloom_launches(3), **cull_launches(3))
+                             shadow_resolve=3, **bloom_launches(3), **cull_launches(3))
     log("sun main", f"launches {launches} (expected {expected}); update+splice ms {upd_ms}, animated frame ms "
         f"{frame_ms} on {smi}")
     check(launches == expected, "kernel launch counts")
     sun_stages(step, state, dev, smi)
-    return dict(update=upd, forced=forced_cap, launches=launches, state=state, step=step, update_step=update)
+    return dict(update=upd, forced=forced_cap, launches=launches, state=state, step=step, update_step=update,
+                resolve=dict(capture=cap, sp=sp, params=params, cfg=cfg))
 
 
 def sun_stages(step, state, dev, smi) -> None:

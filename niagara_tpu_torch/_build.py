@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu", "cull.cu", "gbuffer.cu")
+SOURCES = ("setup.cu", "raster.cu", "shade.cu", "bloom.cu", "trace.cu", "cull.cu", "gbuffer.cu", "shadowmap.cu")
 HEADERS = ("lookback.cuh",)  # included by sources: hashed with them
 # --fmad=false: no a*b+c contraction, so every kernel rounds op by op like
 # its plain torch version; no fast math (IEEE division and sqrt)
@@ -47,11 +47,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # cluster_cull count cull.cu's two kernels of a cull pass, cluster_order its
 # x-ordered metadata gather (one a class group), pyramid_base /
 # pyramid_filter the depth pyramid's two; gbuffer counts gbuffer.cu's
-# G-buffer encode (every instance of its template)
+# G-buffer encode (every instance of its template); shadow_resolve counts
+# shadowmap.cu's sun-map resolve (with or without its blur)
 LAUNCHES = {"setup": 0, "setup_alpha": 0, "raster": 0, "raster_alpha": 0, "raster_window": 0,
             "raster_alpha_window": 0, "shade": 0, "bloom_down": 0, "bloom_up": 0, "bloom_tail": 0, "bloom_x2": 0,
             "trace": 0, "trace_alpha": 0, "draw_cull": 0, "cluster_cull": 0, "cluster_order": 0, "pyramid_base": 0,
-            "pyramid_filter": 0, "gbuffer": 0}
+            "pyramid_filter": 0, "gbuffer": 0, "shadow_resolve": 0}
 build_info = {"seconds": None, "log": "", "path": None}
 
 _lock = threading.Lock()
@@ -152,6 +153,19 @@ class GBufferArgs(ctypes.Structure):
                                                                      "slots", "meta")]
 
 
+SHADOW_TAPS = 10  # kTaps in csrc/shadowmap.cu: ops/shadow.py SHADOW_BLUR_KERNEL
+
+
+class ShadowResolveArgs(ctypes.Structure):
+    """Mirror of `struct ShadowResolveArgs` in csrc/shadowmap.cu: the
+    resolve's inputs, output, count and launch constants."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in ("depth", "packed", "rows", "lo", "hi", "out", "count")] + [
+        ("ivp", ctypes.c_float * 16), ("tap_w", ctypes.c_float * SHADOW_TAPS), ("bias_scale", ctypes.c_float),
+        ("znear", ctypes.c_float)] + [(k, ctypes.c_int) for k in ("width", "height", "scale", "sw", "sh", "map_w",
+                                                                  "map_h")]
+
+
 _SIGNATURES = {
     # count, mi, tri_count, xform, draw, mat, post, K, tris, vdata, vertices, alpha
     # (null: no-alpha variant), params, capacity, status, rec, aabb, tri_k, tri_t, valid,
@@ -191,6 +205,8 @@ _SIGNATURES = {
     "pyramid_filter_launch": [PyramidPlan, P, P, P, P],
     # args, textured, normal map, quads, stream
     "gbuffer_launch": [GBufferArgs, I, I, I, P],
+    # args, blur, stream
+    "shadow_resolve_launch": [ShadowResolveArgs, I, P],
 }
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import TASK_WGSIZE, TILE_H, TILE_W
 from ..utils.profiling import span
 from . import compact, cull, cullmath, raster, raster_tile, shadow
@@ -338,12 +339,84 @@ def sample_shadow(sun_map, sf, wpos, *, bias_texels: float = 1.5):
 
 def shadow_map_pass(depth, sf, sun_map, *, inverse_view_projection, width: int, height: int,
                     bias_texels: float = 1.5, scale: int = 2, packed=None, map_shape=None, blur: bool = False,
-                    znear: float = 0.1):
+                    znear: float = 0.1, stages=None):
     """Shadow term [height, width] from the camera's reverse-Z depth
     (sunmap.py:498-541): world positions reconstructed at 1/scale
     resolution, resolved against the packed table (`packed`, `map_shape`)
     or the map, 1 where nothing was drawn, optionally blurred
-    (shadow.shadow_blur), then repeated up to full size."""
+    (shadow.shadow_blur), then repeated up to full size.  CPU tensors take
+    the plain twin (shadow_map_plain), CUDA tensors the kernel
+    (shadow_resolve_cuda; without `packed` it packs the map first, so it
+    resolves as the twin does from pack_sun_map's table).  `stages` (a
+    StageTimer) gets the count "sun-map resolve texels": the 1/scale
+    texels tested against the map (depth > 0) against all of them."""
+    kw = dict(inverse_view_projection=inverse_view_projection, width=width, height=height, bias_texels=bias_texels,
+              scale=scale, blur=blur, znear=znear)
+    if depth.device.type == "cpu":
+        term = shadow_map_plain(depth, sf, sun_map, packed=packed, map_shape=map_shape, **kw)
+        if stages is not None:
+            tested = tested_texels(depth, width, height, scale)
+    else:
+        if packed is None:
+            packed, map_shape = pack_sun_map(sun_map), sun_map.shape
+        elif map_shape is None:
+            map_shape = sun_map.shape
+        term, tested = shadow_resolve_cuda(depth, sf, packed, map_shape, **kw)
+    if stages is not None:
+        stages.count("sun-map resolve texels", tested, (height // scale) * (width // scale))
+    return term
+
+
+def tested_texels(depth, width: int, height: int, scale: int):
+    """The texels of the 1/scale grid that the resolve tests against the
+    map, those where something was drawn (depth > 0): a 0-d count."""
+    return (depth[::scale, ::scale][:height // scale, :width // scale] > 0.0).sum()
+
+
+def shadow_resolve_cuda(depth, sf, packed, map_shape, *, inverse_view_projection, width: int, height: int,
+                        bias_texels: float = 1.5, scale: int = 2, blur: bool = False, znear: float = 0.1):
+    """The resolve kernel (csrc/shadowmap.cu): shadow_map_plain's contract
+    on the packed table in one launch (and the count's zeroing), plus the
+    texels it tested against the map (an int32 [1] word the kernel sums
+    into).  It allocates only its outputs and refuses inputs of another
+    dtype, device or shape, or not contiguous.  Returns (term, tested)."""
+    mh, mw = (int(v) for v in map_shape)
+    sw, sh = width // scale, height // scale
+    if scale < 1 or sw < 1 or sh < 1 or mh < 1 or mw < 1:
+        raise ValueError(f"shadow_resolve: a {width}x{height} frame at 1/{scale} on a {mw}x{mh} map has no texel")
+    inputs = ((depth, (height, width), "depth"), (packed, (mh * mw, 4), "packed"), (sf["rows"], (3, 3), "sun rows"),
+              (sf["lo"], (3,), "sun lo"), (sf["hi"], (3,), "sun hi"))
+    for t, shape, what in inputs:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"shadow_resolve {what}: expected a contiguous float32 {shape} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    _build.require_cuda(depth, "shadow_resolve")
+    for t, _, what in inputs:
+        if t.device != depth.device:
+            raise ValueError(f"shadow_resolve {what}: on {t.device}, the depth on {depth.device}")
+    if packed.data_ptr() % 16:  # rows are read with 16-byte loads
+        raise ValueError("shadow_resolve packed: the table is not 16-byte aligned")
+    out = torch.empty((sh * scale, sw * scale), dtype=torch.float32, device=depth.device)
+    tested = torch.empty(1, dtype=torch.int32, device=depth.device)
+    args = _build.ShadowResolveArgs(
+        depth=depth.data_ptr(), packed=packed.data_ptr(), rows=sf["rows"].data_ptr(), lo=sf["lo"].data_ptr(),
+        hi=sf["hi"].data_ptr(), out=out.data_ptr(), count=tested.data_ptr(),
+        bias_scale=0.998 * bias_texels, znear=float(znear), width=width, height=height, scale=scale, sw=sw, sh=sh,
+        map_w=mw, map_h=mh)
+    args.ivp[:] = [float(x) for x in np.asarray(inverse_view_projection, dtype=np.float32).reshape(16)]
+    # the blur's tap weights as torch rounds the Python scalars
+    args.tap_w[:] = [float(np.exp2(-i * i / 50.0)) for i in range(1, _build.SHADOW_TAPS + 1)]
+    rc = _build.lib().shadow_resolve_launch(args, int(blur), _build.stream_ptr(depth))
+    _build.LAUNCHES["shadow_resolve"] += 1
+    _build.check(rc, "shadow_resolve")
+    return out, tested
+
+
+def shadow_map_plain(depth, sf, sun_map, *, inverse_view_projection, width: int, height: int,
+                     bias_texels: float = 1.5, scale: int = 2, packed=None, map_shape=None, blur: bool = False,
+                     znear: float = 0.1):
+    """Plain torch resolve: shadow_map_pass's contract (without the
+    count), op by op as the kernel computes it from a packed table."""
     d_small, wpos = shadow.world_positions(depth, inverse_view_projection, width, height, scale)
     if packed is not None:
         mh, mw = map_shape if map_shape is not None else sun_map.shape

@@ -448,7 +448,9 @@ def composite_frame(g0, g1, depth, valid, params, shade_params: ShadeParams, cfg
     ("shadow", None when unshadowed) and the ray-traced pass's rays
     ("trace").  Its spans are "bloom", "sun-map resolve+blur" or
     shadow_pass's ("rt rays+trace", "rt fill+blur"), and "composite";
-    `stages` gets their boundaries and shadow_pass's count."""
+    `stages` gets their boundaries and the shadow pass's count
+    (shadow_map_pass's "sun-map resolve texels" or shadow_pass's "rt
+    steps")."""
     ivp = shade_params.inverse_view_projection
     bloom_img = None
     if cfg.bloom:
@@ -461,7 +463,8 @@ def composite_frame(g0, g1, depth, valid, params, shade_params: ShadeParams, cfg
         with span(stages, "sun-map resolve+blur"):
             shadow = sunmap.shadow_map_pass(
                 depth, sf, None, inverse_view_projection=ivp, width=cfg.width,
-                height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear)
+                height=cfg.height, packed=packed, map_shape=map_shape, blur=cfg.shadow_blur, znear=params.znear,
+                stages=stages)
     elif cfg.shadows and bvh is not None:
         shadow = shadow_ops.shadow_pass(
             depth, bvh, sun_direction=shade_params.sun_direction, inverse_view_projection=ivp, width=cfg.width,

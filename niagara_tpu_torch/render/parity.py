@@ -8,18 +8,19 @@ CPU tests hold to the reference: this gate replays a frame's kernel calls
 on the card and holds each kernel's output to its plain version's on the
 same inputs, bit for bit.
 
-`replay_frame` (with `replay_cull`), `replay_gbuffer`, `replay_band` (of
-`band_args`), `replay_bloom` and `replay_trace` are the replays (the
-end-to-end check chip_smoke.py times and bounds the calls they return);
-`kernel_parity_check`, chip_smoke.py's "gate" phase, renders the small
-opaque and alpha scenes on the card and runs all five, so every kernel
+`replay_frame` (with `replay_cull`), `replay_gbuffer`,
+`replay_shadow_resolve`, `replay_band` (of `band_args`), `replay_bloom`
+and `replay_trace` are the replays (the end-to-end check chip_smoke.py
+times and bounds the calls they return); `kernel_parity_check`,
+chip_smoke.py's "gate" phase, renders the small opaque and alpha scenes
+with their sun maps on the card and runs all six, so every kernel
 instance is held: cull.cu's draw_cull, cluster_cull and cluster_order
 kernels on both cull passes (with and without the merged classes and the
 write-back) and its two pyramid kernels, setup_kernel<false> and <true>,
 raster_tile<false> and <true> over the whole grid and over a band
-(band_row0), shade_px, gbuffer_px untextured and textured, the four bloom
-kernels and trace_any_hit<false> and <true>.  Any difference raises
-ParityError on the first output that differs.
+(band_row0), shade_px, gbuffer_px untextured and textured, shadowmap.cu's
+resolve_blur, the four bloom kernels and trace_any_hit<false> and <true>.
+Any difference raises ParityError on the first output that differs.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ import torch
 
 from ..config import TILE_H, TILE_W
 from ..ops.raster import INVALID_FRAG
+
+
+# the small scenes' sun map: its size and budgets (chip_smoke.py's "sun small" too)
+SUN_MAP = 256
+SUN_CAPS = dict(cmd_capacity=256, cluster_capacity=1024, tri_capacity=1 << 14, pair_capacity=1 << 15)
 
 
 class ParityError(AssertionError):
@@ -208,6 +214,36 @@ def replay_gbuffer(capture: dict, scene, textures, inverse_view_projection) -> l
     return calls
 
 
+def replay_shadow_resolve(capture: dict, sun, inverse_view_projection, cfg, znear: float) -> list[dict]:
+    """The sun-map resolve of a frame captured by render_frame with `sun` =
+    (sun frame, packed map, (map_h, map_w)) (`capture`: its depth "depth"
+    and shadow term "shadow") through csrc/shadowmap.cu (ops/sunmap.py
+    shadow_resolve_cuda) against the plain twin (shadow_map_plain) on the
+    same inputs, as composite_frame calls it: the term bit for bit, the
+    kernel's count of tested texels equal to the half-resolution depth's
+    texels above 0, and both terms equal to the frame's own.  Returns
+    records in replay_frame's form ("shadow_resolve" of module
+    "sunmap")."""
+    from ..ops import sunmap
+
+    sf, packed, map_shape = sun
+    depth = capture["depth"]
+    args = (depth, sf, packed, map_shape)
+    kw = dict(inverse_view_projection=inverse_view_projection, width=cfg.width, height=cfg.height,
+              blur=cfg.shadow_blur, znear=znear)
+    k_out, tested = sunmap.shadow_resolve_cuda(*args, **kw)
+    p_out = sunmap.shadow_map_plain(depth, sf, None, packed=packed, map_shape=map_shape, **kw)
+    same_bits(k_out, p_out, "shadow_resolve")
+    same_bits(k_out, capture["shadow"], "shadow_resolve against the frame's")
+    n = int(sunmap.tested_texels(depth, cfg.width, cfg.height, 2))
+    expect(int(tested[0]) == n, f"shadow_resolve: the kernel counted {int(tested[0])} texels, the depth has {n}")
+    shadowed = int((p_out < 1.0).sum())
+    return [dict(name="shadow_resolve", pass_="shadow_resolve", module="sunmap", fn="shadow_resolve_cuda",
+                 plain="shadow_map_plain", args=args, kwargs=kw, out=(k_out, tested),
+                 lines=[f"shadow_resolve: {n} texels tested on a {map_shape[1]}x{map_shape[0]} map, {shadowed} px "
+                        f"below 1, blur {'on' if cfg.shadow_blur else 'off'}, bit for bit (max_abs_err 0.0)"])]
+
+
 def band_args(setup_out, cfg, row0: int, n_rows: int) -> tuple:
     """raster_cuda's arguments for the band of tile rows [row0, row0 +
     n_rows) of one pass's set-up triangles (`setup_out`), as the sun map's
@@ -350,7 +386,9 @@ def kernel_parity_check(geometry, device, *, width: int = 256, height: int = 128
     cull passes, pyramid, setup (no-alpha and alpha), raster (opaque and
     alpha_test) and shade calls replayed (replay_frame) and its G-buffer
     (replay_gbuffer: untextured on the opaque frame, textured with the
-    alpha discard on the alpha frame), a band of the alpha frame's late pass
+    alpha discard on the alpha frame) and its sun-map resolve
+    (replay_shadow_resolve: each scene's static 256x256 sun map, the
+    frames rendered with it), a band of the alpha frame's late pass
     (replay_band: both raster instances with a nonzero band_row0), the
     bloom levels on its g0 (replay_bloom), and one trace_any_hit batch of
     each instance: the shadow pass's rays from its depth without and with
@@ -371,35 +409,46 @@ def replay_small_scene(geometry, device, *, width: int = 256, height: int = 128)
     kernels; on the CPU they raise, unless a test has pointed them at
     their plain versions."""
     from .. import cooker, scene as scene_mod
-    from ..ops import shadow
+    from ..ops import shadow, sunmap
     from . import camera, frame, presets, textures
 
     dev = torch.device(device)
 
-    def two_frames(sc, post_passes, tex=None):
-        cfg = frame.FrameConfig(width=width, height=height, post_passes=post_passes, **presets.small_capacities())
+    def two_frames(sc, draws, post_passes, tex=None):
+        cfg = frame.FrameConfig(width=width, height=height, post_passes=post_passes, shadows=True,
+                                **presets.small_capacities())
         params, sp = frame.make_frame_inputs(camera.Camera(), camera.RenderSettings(), cfg)
+        sf = sunmap.fit_sun_to_draws(sp.sun_direction, draws, device=dev)
+        static, drop = sunmap.build_static_sun_map(sc, sf, map_w=SUN_MAP, map_h=SUN_MAP, **SUN_CAPS)
+        expect(int(drop) == 0, f"a parity scene's sun map dropped {int(drop)}")
+        sun = (sf, sunmap.pack_sun_map(static), (SUN_MAP, SUN_MAP))
         state = frame.init_state(sc.num_draws, sc.meshlet_visibility_count, dev)
         cap = {}
         for _ in range(2):
-            _, fb, state, _ = frame.render_frame(sc, state, params, sp, cfg, textures=tex, capture=cap)
+            _, fb, state, _ = frame.render_frame(sc, state, params, sp, cfg, textures=tex, sun=sun, capture=cap)
         live = sum(int(st["count"]) for st in cap["setup_out"])
         covered = int((fb.vis != INVALID_FRAG).sum())
         expect(live > 0 and covered > 100, f"a parity scene rendered {live} triangles over {covered} px")
         held["live"] += live
         held["covered"] += covered
-        return cfg, params, sp, cap, fb
+        return cfg, params, sp, cap, fb, sun
+
+    def replays(sc, tex, cfg, params, sp, cap, sun):
+        ivp = sp.inverse_view_projection
+        return (replay_frame(cap, sc, params, cfg) + replay_gbuffer(cap, sc, tex, ivp)
+                + replay_shadow_resolve(cap, sun, ivp, cfg, params.znear))
 
     held = dict(live=0, covered=0)
-    opaque = scene_mod.from_numpy(scene_mod.upload(geometry, cooker.small_scene_draws(geometry.meshes.count)), dev)
-    cfg, params, sp, cap, _ = two_frames(opaque, 1)
-    calls = replay_frame(cap, opaque, params, cfg) + replay_gbuffer(cap, opaque, None, sp.inverse_view_projection)
+    draws = cooker.small_scene_draws(geometry.meshes.count)
+    opaque = scene_mod.from_numpy(scene_mod.upload(geometry, draws), dev)
+    cfg, params, sp, cap, _, sun = two_frames(opaque, draws, 1)
+    calls = replays(opaque, None, cfg, params, sp, cap, sun)
     g, d, mats, masks, mips = cooker.small_alpha_scene(geometry)
     table = textures.build_texture_table(mips)
     sc = scene_mod.from_numpy(scene_mod.upload(g, d, mats, masks, texture_table=table), dev)
     tex = textures.to_device(table, dev)
-    cfg, params, sp, cap, fb = two_frames(sc, 2, tex)
-    calls += replay_frame(cap, sc, params, cfg) + replay_gbuffer(cap, sc, tex, sp.inverse_view_projection)
+    cfg, params, sp, cap, fb, sun = two_frames(sc, d, 2, tex)
+    calls += replays(sc, tex, cfg, params, sp, cap, sun)
     row0 = height // TILE_H // 4  # tile rows 4-11 of 16 at 256x128
     band = replay_band(band_args(cap["setup_out"][-1], cfg, row0, 2 * row0), row0)
     expect(all(c["written"] > 0 for c in band), "the band replay covers no pixel")

@@ -23,13 +23,14 @@ with presets.small_capacities().
   column summing to the frame's own ms within 5%.
 * The gate: kernel_parity_check refuses a CPU device; with the kernel
   wrappers pointed at their plain versions the small scenes' replays
-  (the opaque and the alpha frame with their G-buffers, a band of the
-  alpha frame's late pass) pass on the CPU, and a wrapper that flips one
-  bit of one word of its output is caught in the replay of its instance:
-  setup (the alpha and the opaque frame's), raster (over the grid, and
-  over the band with and without the alpha test), shade, the G-buffer
-  (the opaque frame's untextured and the alpha frame's textured one,
-  through the whole gate), bloom_down, bloom_up, the tail, bloom_x2, the
+  (the opaque and the alpha frame with their G-buffers and sun-map
+  resolves, a band of the alpha frame's late pass) pass on the CPU, and a
+  wrapper that flips one bit of one word of its output is caught in the
+  replay of its instance: setup (the alpha and the opaque frame's), raster
+  (over the grid, and over the band with and without the alpha test),
+  shade, the G-buffer (the opaque frame's untextured and the alpha frame's
+  textured one, through the whole gate), the sun-map resolve (through the
+  whole gate), bloom_down, bloom_up, the tail, bloom_x2, the
   trace, a cull pass (the early and the late pass's) and the pyramid.
 """
 
@@ -306,6 +307,17 @@ def _plain_gbuffer(textured=None):
     return fake
 
 
+def _plain_resolve(flip=False):
+    """shadow_map_plain in shadow_resolve_cuda's place, with the kernel's
+    count of tested texels; one bit of the term flipped with `flip`."""
+    def fake(depth, sf, packed, map_shape, *, width, height, scale=2, **kw):
+        term = sunmap.shadow_map_plain(depth, sf, None, packed=packed, map_shape=map_shape, width=width,
+                                       height=height, scale=scale, **kw)
+        tested = sunmap.tested_texels(depth, width, height, scale).reshape(1).int()
+        return (_flip(term) if flip else term), tested
+    return fake
+
+
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """Every kernel wrapper the gate replays pointed at its plain version
@@ -314,6 +326,7 @@ def plain_kernels(monkeypatch):
     monkeypatch.setattr(raster_tile, "raster_cuda", raster_tile.raster_plain)
     monkeypatch.setattr(raster_tile, "shade_cuda", raster_tile.shade_plain)
     monkeypatch.setattr(shade, "gbuffer_cuda", _plain_gbuffer())
+    monkeypatch.setattr(sunmap, "shadow_resolve_cuda", _plain_resolve())
     monkeypatch.setattr(bloom, "down2_cuda", bloom._down2)
     monkeypatch.setattr(bloom, "up2_add_cuda", bloom.up2_add_plain)
     monkeypatch.setattr(bloom, "tail_cuda", bloom.tail_plain)
@@ -333,7 +346,7 @@ def test_gate_replays_pass_with_plain_wrappers(small, plain_kernels):
     out = parity.replay_small_scene(small.g, "cpu")
     assert out["setup_records_live"] > 0 and out["covered_px"] > 100
     assert out["calls"] == {"cull": 4, "pyramid": 2, "setup": 2, "raster": 3, "shade": 2, "gbuffer": 2,
-                            "setup_alpha": 2, "raster_alpha": 1, "raster_window": 1, "raster_alpha_window": 1}
+                            "shadow_resolve": 2, "setup_alpha": 2, "raster_alpha": 1, "raster_window": 1, "raster_alpha_window": 1}
     assert out["bloom_levels"] == 2 * bloom.bloom_levels(W, H) - 1
     assert 0 < out["occluded_rays"] < out["rays"] == 2 * (W // 2) * (H // 2) // 2
 
@@ -389,6 +402,7 @@ FLIPS = {
     "shade": (raster_tile, "shade_cuda", lambda *a: _flip(raster_tile.shade_plain(*a))),
     "gbuffer": (shade, "gbuffer_cuda", _plain_gbuffer(textured=False)),
     "gbuffer textured": (shade, "gbuffer_cuda", _plain_gbuffer(textured=True)),
+    "shadow_resolve": (sunmap, "shadow_resolve_cuda", _plain_resolve(flip=True)),
     "bloom_down": (bloom, "down2_cuda", lambda s: _flip(bloom._down2(s))),
     "bloom": (bloom, "up2_add_cuda", lambda s, m: _flip(bloom.up2_add_plain(s, m))),
     "bloom_x2": (bloom, "bilinear_x2_cuda",
@@ -403,12 +417,14 @@ FLIPS = {
 }
 # the kernel each flip is caught in, and the replay that catches it: the
 # alpha frame's, the opaque frame's (setup_kernel<false>), the band's (each
-# raster instance with band_row0) or the whole gate's (the G-buffers)
+# raster instance with band_row0) or the whole gate's (the G-buffers, the
+# sun-map resolve)
 CAUGHT = {"setup": ("setup", "setup_alpha early"), "setup opaque": ("setup", "setup early"),
           "raster": ("raster", "raster early"), "raster_window": ("raster_window", "raster_window band"),
           "raster_alpha_window": ("raster_alpha_window", "raster_alpha_window band"),
           "shade": ("shade", "shade"), "gbuffer": ("gbuffer", "gbuffer"),
-          "gbuffer textured": ("gbuffer textured", "gbuffer"), "bloom_down": ("bloom_down", "bloom_down"),
+          "gbuffer textured": ("gbuffer textured", "gbuffer"),
+          "shadow_resolve": ("shadow_resolve", "shadow_resolve"), "bloom_down": ("bloom_down", "bloom_down"),
           "bloom": ("bloom", "bloom_up"), "bloom_tail": ("bloom_tail", "bloom_tail"),
           "bloom_x2": ("bloom_x2", "bloom_x2"),
           "trace": ("trace", "trace_alpha"),
@@ -430,7 +446,7 @@ def test_gate_flags_one_flipped_bit(small, captured, plain_kernels, which):
             parity.replay_bloom(captured.cap["g0"], W, H)
         elif which.startswith("trace"):
             parity.replay_trace(captured.bvh, captured.trace)
-        elif which.startswith("gbuffer"):
+        elif which.startswith(("gbuffer", "shadow_resolve")):
             parity.replay_small_scene(small.g, "cpu")
         elif which == "setup opaque":
             parity.replay_frame(captured.ocap, captured.opaque, captured.params, captured.ocfg)
